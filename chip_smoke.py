@@ -28,7 +28,29 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    to 0 before and read after each, and must rise by exactly what the
    module tree implies. Then one request and the batched rollout run again
    under ``torch.profiler``: the device's busy share and the kernels that
-   take the most device time.
+   take the most device time;
+6. smoke conv: ``python -m jolineedle_tpu_torch.scripts.smoke_conv`` run
+   in-process (the driver of the plain 3x3 conv kernel), its error against
+   ``F.conv2d`` checked;
+7. train: a toy dataset of 2688x2688 images (a 6x6 grid of 448 px patches)
+   written by the port's generator, then the train CLI
+   (``jolineedle_tpu_torch.main``, REINFORCE) at the flagship config with
+   batch 16, gradient accumulation 2, 4 iterations and its final test; the
+   losses must be finite, both optimizer groups and the detector's BN
+   statistics must move (the embedder's must not), the checkpoint must be
+   written, and a resumed run must take one more iteration. The launch
+   counters must read exactly: per train step, the rollout's conv launches
+   (the module tree's count) and 3 flash launches (one per layer of the one
+   teacher-forced forward) and no conv launch in the differentiated
+   forwards. Then two more steps give the phase times (rollout, loss
+   forward+backward, detection, optimizer, by CUDA events), the peak
+   memory, and a ``torch.profiler`` busy share of one step.
+
+Phase 3 also holds the flash-attention kernel against its plain version
+at the decoder's shape [16, 3, 21, 16] and a ragged multi-tile [2, 4, 200,
+64], output and gradients, and the plain 3x3 conv kernel at the smoke
+script's default and at the nano stem; phase 4 also compares the REINFORCE
+loss and its gradients on the card with the CPU.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed carries the card's
@@ -40,12 +62,15 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 from collections import Counter, defaultdict
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -79,6 +104,15 @@ EXPECTED_PER_CALL = {
     "embedder": {"dwblock_bn_silu": 12, "conv3x3_bn_silu": 1},
     "detector": {"dwblock_bn_silu": 24, "conv3x3_bn_silu": 1},
 }
+
+# The train phase: the flagship config at batch 16, gradient accumulation 2.
+TRAIN_B, TRAIN_ACCUM, TRAIN_ITERS, N_LAYER = 16, 2, 4, 3
+# Flash attention: the decoder's teacher-forced shape at TRAIN_B (B, heads,
+# T = STEPS + 1 with the class token, head dim) and a ragged multi-tile one.
+FLASH_SHAPES = [(TRAIN_B, 3, STEPS + 1, 16), (2, 4, 200, 64)]
+# The plain 3x3 conv: the smoke script's default and the nano stem.
+PLAIN_CONV_SHAPES = [(8, 56, 56, 16, 32), (N_PATCHES, PATCH // 2, PATCH // 2, 12, 16)]
+KERNEL_NAMES = ("dwblock_bn_silu", "conv3x3_bn_silu", "flash_attention", "conv3x3")
 
 CARD = ""  # "name, power limit" from nvidia-smi, set in main()
 
@@ -231,6 +265,55 @@ def _report(got, want, dtype, n_bytes, n_ops, kernel_fn, plain_fn, library_fn):
     }
 
 
+def measure_flash(kattn, shape, dtype, gen):
+    """The flash kernel against its plain version, output and gradients
+    (through the autograd.Function), and its forward's times."""
+    dev = gen.device
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
+    qd, kd, vd = (t.to(dtype).requires_grad_() for t in (q, k, v))
+    got = kattn.flash_attention(qd, kd, vd)
+    got_grads = torch.autograd.grad(got, (qd, kd, vd), do.to(dtype))
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (qd, kd, vd))
+    want = kattn.flash_attention_reference(qf, kf, vf)
+    want_grads = torch.autograd.grad(want, (qf, kf, vf), do.to(dtype).float())
+    torch.cuda.synchronize()
+    atol, rtol = TOLS[dtype]
+    grad_err = 0.0
+    for name, g, w in zip("qkv", got_grads, want_grads):
+        torch.testing.assert_close(g.float(), w, atol=atol, rtol=rtol, msg=f"d{name}")
+        grad_err = max(grad_err, (g.float() - w).abs().max().item())
+
+    B, H, T, D = shape
+    x = [t.detach() for t in (qd, kd, vd)]
+    pairs = B * H * T * (T + 1) // 2  # causal (query, key) pairs
+    n_bytes = 4 * B * H * T * D * qd.element_size() + 4 * B * H * T  # q, k, v, o; lse
+    n_ops = 4 * D * pairs  # QK^T and PV on the visible pairs
+    o, lse = kattn.flash_attention_launch(*x)
+    r = _report(got, want, dtype, n_bytes, n_ops,
+                lambda: kattn.flash_attention_launch(*x),
+                lambda: kattn.flash_attention_reference(*x),
+                lambda: F.scaled_dot_product_attention(*x, is_causal=True))
+    r["grad_max_abs_err"] = grad_err
+    r["backward_ms"] = median_ms(lambda: kattn.flash_attention_backward(*x, o, lse, do.to(dtype)))
+    return r
+
+
+def measure_plain_conv(kconv, B, H, W, C, K, dtype, gen):
+    dev = gen.device
+    x = torch.randn((B, H, W, C), generator=gen, device=dev).to(dtype)
+    w = torch.randn((3, 3, C, K), generator=gen, device=dev) / (9 * C) ** 0.5
+    got = kconv.conv3x3(x, w)
+    want = kconv.conv3x3_reference(x.float(), w)
+    wf = w.reshape(9 * C, K).contiguous()
+    xc, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(dtype)
+    n_bytes = B * H * W * (C + K) * x.element_size() + 4 * 9 * C * K
+    n_ops = B * H * W * 2 * 9 * C * K
+    return _report(got, want, dtype, n_bytes, n_ops,
+                   lambda: kconv.conv3x3_launch(x, wf),
+                   lambda: kconv.conv3x3_reference(x, w),
+                   lambda: F.conv2d(xc, w_oihw, padding=1))
+
+
 KERNELS = {
     "dwblock_bn_silu": dict(
         source="jolineedle_tpu_torch/csrc/dwblock_bn_silu.cu",
@@ -241,6 +324,14 @@ KERNELS = {
         source="jolineedle_tpu_torch/csrc/conv3x3_bn_silu.cu",
         replaces="jolineedle_tpu/ops/conv.py:68",
         measure=measure_conv3x3,
+    ),
+    "flash_attention": dict(
+        source="jolineedle_tpu_torch/csrc/flash_attention.cu",
+        replaces="jolineedle_tpu/ops/attention.py:101",
+    ),
+    "conv3x3": dict(
+        source="jolineedle_tpu_torch/csrc/conv3x3.cu",
+        replaces="scripts/smoke_pallas_conv.py:67",
     ),
 }
 
@@ -264,35 +355,74 @@ def kernel_phase(kconv, shapes, seed):
     return rows
 
 
-def kernels_json(rows, launches):
-    """One entry per kernel: its numbers summed over the launches of one
-    detector call (bfloat16, the serving dtype), each shape in ``shapes``."""
+def new_kernel_phase(port, seed):
+    """The flash kernel and the plain 3x3 conv at their shapes, both dtypes."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    rows = []
+    for shape in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            r = measure_flash(port.kattn, shape, dtype, gen)
+            r.update(name="flash_attention", shape=list(shape), dtype=DTYPE_NAMES[dtype])
+            rows.append(r)
+            say(f"kernel flash_attention {list(shape)} {DTYPE_NAMES[dtype]}: {r['ms']:.4f} ms"
+                f" (backward, PyTorch ops: {r['backward_ms']:.4f} ms), plain"
+                f" {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound"
+                f" {r['bound_ms']:.6f} ms ({r['bound_by']}), max |err| {r['max_abs_err']:.3g},"
+                f" gradients {r['grad_max_abs_err']:.3g}")
+    for shape in PLAIN_CONV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            r = measure_plain_conv(port.kconv, *shape, dtype, gen)
+            r.update(name="conv3x3", shape=list(shape), dtype=DTYPE_NAMES[dtype])
+            rows.append(r)
+            say(f"kernel conv3x3 {list(shape)} {DTYPE_NAMES[dtype]}: {r['ms']:.4f} ms, plain"
+                f" {r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms, bound"
+                f" {r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| {r['max_abs_err']:.3g}")
+    return rows
+
+
+def kernels_json(rows, new_rows, launches, by_path):
+    """One entry per kernel. The fused conv blocks: their numbers summed over
+    the launches of one detector call (bfloat16, the serving dtype), each
+    shape in ``shapes``. Flash attention: one teacher-forced forward of the
+    train step (3 launches at the decoder's shape, bfloat16). The plain 3x3
+    conv: one call at the smoke script's default (bfloat16). ``launches``
+    sums every path's count; ``launches_by_path`` splits it."""
+    keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
     out = []
     for name, info in KERNELS.items():
-        mine = [r for r in rows if r["name"] == name]
-        main = [r for r in mine if r["dtype"] == "bfloat16"]
-        total = lambda key: sum(r[key] * r["per_detector_call"] for r in main)
+        if name in ("dwblock_bn_silu", "conv3x3_bn_silu"):
+            mine = [r for r in rows if r["name"] == name]
+            main = [(r, r["per_detector_call"]) for r in mine if r["dtype"] == "bfloat16"]
+            timed_as = f"one detector call's launches at N={N_PATCHES} patches of {PATCH} px, bfloat16"
+            extra = ("per_embedder_call", "per_detector_call")
+        else:
+            mine = [r for r in new_rows if r["name"] == name]
+            first = [r for r in mine if r["dtype"] == "bfloat16"][0]
+            main = [(first, N_LAYER if name == "flash_attention" else 1)]
+            timed_as = (f"one teacher-forced forward ({N_LAYER} launches) at {first['shape']},"
+                        " bfloat16" if name == "flash_attention"
+                        else f"one call at the smoke default {first['shape']}, bfloat16")
+            extra = ("grad_max_abs_err", "backward_ms") if name == "flash_attention" else ()
+        total = lambda key: sum(r[key] * n for r, n in main)
         by = Counter()
-        for r in main:
-            by[r["bound_by"]] += r["bound_ms"] * r["per_detector_call"]
+        for r, n in main:
+            by[r["bound_by"]] += r["bound_ms"] * n
         out.append({
             "name": name,
             "route": "cuda",
             "source": info["source"],
             "replaces": info["replaces"],
             "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in main),
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+            "max_abs_err": max(r["max_abs_err"] for r, _ in main),
             "ms": total("ms"),
             "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": by.most_common(1)[0][0],
             "library_ms": total("library_ms"),
-            "timed_as": f"one detector call's launches at N={N_PATCHES} patches of"
-                        f" {PATCH} px, bfloat16",
-            "shapes": [{k: r[k] for k in ("shape", "dtype", "per_embedder_call",
-                                          "per_detector_call", "max_abs_err", "ms",
-                                          "plain_ms", "library_ms", "bound_ms", "bound_by")}
-                       for r in mine],
+            "timed_as": timed_as,
+            "shapes": [{k: r[k] for k in keys + extra} for r in mine],
         })
     return out
 
@@ -370,6 +500,62 @@ def rollout_reference(models, train_config, seed):
     say(f"reference: greedy rollout on the card matches the CPU for {t_end} of {STEPS} steps")
 
 
+def train_reference(models, state, train_config, seed):
+    """The REINFORCE loss and its gradients on the card against the CPU, on
+    one sampled rollout record of the CPU model (2 images of 2x3 patches, 3
+    steps): the flash kernel's backward and the autograd convs of the
+    recompute forward. Each gradient leaf within 1e-3 of its largest entry;
+    and the train-mode detector's SimOTA loss within ``REF_TOL``."""
+    from jolineedle_tpu_torch.env.batched_env import NeedleEnv
+    from jolineedle_tpu_torch.ops.augment import detection_augment
+    from jolineedle_tpu_torch.ops.simota import yolox_losses
+    from jolineedle_tpu_torch.train.reinforce import reinforce_loss
+    from jolineedle_tpu_torch.train.rollout import rollout
+
+    for m in models.values():  # the unsharpened head: softmax gradients of size
+        m.load_state_dict(state)
+    rng = np.random.default_rng(seed + 2)
+    images = rng.integers(0, 256, (2, 2 * PATCH, 3 * PATCH, 3), dtype=np.uint8)
+    boxes = np.array([[[40, 40, 300, 88]], [[500, 500, 964, 548]]], np.float32)
+    envs = {d: NeedleEnv(images, boxes, PATCH, 3, 1, True, device=m.device)
+            for d, m in models.items()}
+    ro = rollout(models["cpu"], envs["cpu"], sample=True,
+                 generator=torch.Generator().manual_seed(seed), collect=("actions",))
+    ro.pop("final_state")
+    grads, losses = {}, {}
+    for d, m in models.items():
+        m.zero_grad(set_to_none=True)
+        loss, _ = reinforce_loss(m, envs[d], {k: v.to(m.device) for k, v in ro.items()}, 0.2, 1.3,
+                                 train_config.entropy_weight)
+        loss.backward()
+        losses[d] = loss.item()
+        grads[d] = {n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                    if p.grad is not None}
+    require(grads["cuda"].keys() == grads["cpu"].keys(), "train reference: gradient keys")
+    require(abs(losses["cuda"] - losses["cpu"]) <= 1e-4 + 1e-4 * abs(losses["cpu"]),
+            f"train reference: loss {losses['cuda']} on the card, {losses['cpu']} on the CPU")
+    worst = 0.0
+    for n, want in grads["cpu"].items():
+        err = (grads["cuda"][n] - want).abs().max().item()
+        limit = 1e-3 * want.abs().max().item() + 1e-6
+        require(err <= limit, f"train reference: d{n} off by {err} (limit {limit})")
+        worst = max(worst, err / limit)
+    patches, targets, valid = envs["cpu"].get_detection_batch(
+        torch.Generator().manual_seed(seed), 4)
+    det = detection_augment(torch.Generator().manual_seed(seed), patches)
+    det_loss = {}
+    for d, m in models.items():
+        head, _ = m.yolox_outputs(det.reshape((-1,) + det.shape[2:]).to(m.device), train=True)
+        det_loss[d] = yolox_losses(head, targets.reshape((-1,) + targets.shape[2:]).to(m.device),
+                                   valid.reshape(-1).to(m.device))["total_loss"].item()
+    require(abs(det_loss["cuda"] - det_loss["cpu"])
+            <= REF_TOL["atol"] + REF_TOL["rtol"] * abs(det_loss["cpu"]),
+            f"train reference: detection loss {det_loss}")
+    say(f"reference: REINFORCE loss {losses['cuda']:.6f} (CPU {losses['cpu']:.6f}) and its"
+        f" {len(grads['cpu'])} gradients match the CPU (the worst at {worst:.2f} of its limit);"
+        f" detection loss {det_loss['cuda']:.4f} (CPU {det_loss['cpu']:.4f})")
+
+
 # --- phase 5: serve ----------------------------------------------------------------
 def randomize_bn(model, seed):
     """Non-trivial BN running statistics and affine terms, from ``seed``."""
@@ -390,16 +576,29 @@ def require(ok, what: str) -> None:
         raise AssertionError(what)
 
 
-def check_launches(kconv, what, expected):
-    got = {"dwblock_bn_silu": kconv.dwblock_bn_silu.launches,
-           "conv3x3_bn_silu": kconv.conv3x3_bn_silu.launches}
+def read_launches(port) -> dict:
+    return {"dwblock_bn_silu": port.kconv.dwblock_bn_silu.launches,
+            "conv3x3_bn_silu": port.kconv.conv3x3_bn_silu.launches,
+            "conv3x3": port.kconv.conv3x3.launches,
+            "flash_attention": port.kattn.flash_attention.launches}
+
+
+def reset_launches(port) -> None:
+    port.kconv.reset_counts()
+    port.kattn.reset_counts()
+
+
+def check_launches(port, what, expected):
+    """The four counters against ``expected`` (kernels it omits: 0)."""
+    expected = {name: expected.get(name, 0) for name in KERNEL_NAMES}
+    got = read_launches(port)
     if got != expected:
         raise AssertionError(f"{what}: kernel launches {got}, expected {expected}")
     say(f"{what}: kernel launches {got} as expected")
     return got
 
 
-def serve_phase(kconv, model_dir, seed):
+def serve_phase(port, model_dir, seed):
     from jolineedle_tpu_torch.infer import infer_image, load_model_dir
     from jolineedle_tpu_torch.train.rollout import eval_rollout
 
@@ -415,7 +614,7 @@ def serve_phase(kconv, model_dir, seed):
 
     infer_image(model, train_config, images[0], targets[0], seed=0)  # warm-up
     torch.cuda.synchronize()
-    kconv.reset_counts()
+    reset_launches(port)
     request_ms = []
     for i, (image, boxes) in enumerate(zip(images, targets)):
         out = infer_image(model, train_config, image, boxes, seed=i)
@@ -431,7 +630,7 @@ def serve_phase(kconv, model_dir, seed):
             f" {out['positions'].shape[0]} steps ({out['n_valid']} before STOP),"
             f" {out['obj_count']} objects found, returns {out['metrics']['returns']:.4f}")
     n = len(images)
-    launches = Counter(check_launches(kconv, f"{n} requests", {
+    launches = Counter(check_launches(port, f"{n} requests", {
         k: n * (STEPS * per["embedder"][k] + per["detector"][k]) for k in per["embedder"]}))
 
     # One greedy batched rollout at B = 32 over images made on the card.
@@ -446,12 +645,12 @@ def serve_phase(kconv, model_dir, seed):
 
     run()  # warm-up
     torch.cuda.synchronize()
-    kconv.reset_counts()
+    reset_launches(port)
     start = time.perf_counter()
     ro = run()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
-    launches += check_launches(kconv, f"batched rollout B={N_PATCHES}", {
+    launches += check_launches(port, f"batched rollout B={N_PATCHES}", {
         k: STEPS * per["embedder"][k] for k in per["embedder"]})
     require(ro["positions"].shape == (N_PATCHES, STEPS + 1, 2), "batched rollout: positions shape")
     require(bool(torch.isfinite(ro["logprobs"]).all() and torch.isfinite(ro["rewards"]).all()),
@@ -468,12 +667,12 @@ def serve_phase(kconv, model_dir, seed):
     return launches
 
 
-def profile_run(what, untraced_ms, fn, top=8):
+def profile_run(what, untraced_ms, fn, top=8, unit=("rollout step", STEPS)):
     """``fn`` once under ``torch.profiler``: the device's busy time (the
     union of the traced kernel and copy intervals) against ``untraced_ms``,
     the same work's wall time without the profiler (which adds host time of
-    its own), the device operations per rollout step, and the ``top``
-    kernels by device time."""
+    its own), the device operations per ``unit``, and the ``top`` kernels by
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -496,9 +695,164 @@ def profile_run(what, untraced_ms, fn, top=8):
         by_name[name][1] += e - s
     say(f"profile {what}: device busy {busy_us / 1e3:.2f} ms of {untraced_ms:.2f} ms"
         f" untraced wall ({busy_us / 1e3 / untraced_ms:.1%}),"
-        f" {len(spans) / STEPS:.0f} device operations per rollout step")
+        f" {len(spans) / unit[1]:.0f} device operations per {unit[0]}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         say(f"  {us / 1e3:9.3f} ms {n:6d}x {name[:100]}")
+
+
+# --- phase 6: the smoke-conv script ------------------------------------------------
+def smoke_conv_phase(port):
+    """``python -m jolineedle_tpu_torch.scripts.smoke_conv`` in-process, at
+    its defaults: the path of the plain 3x3 conv kernel."""
+    from jolineedle_tpu_torch.scripts import smoke_conv
+
+    reset_launches(port)
+    result = smoke_conv.main()
+    iters = int(os.environ.get("SMOKE_ITERS", 50))
+    # one checked call, one warm-up, then the timed calls
+    counts = check_launches(port, "smoke_conv", {"conv3x3": iters + 2})
+    require(result["max_abs_err"] <= TOLS[torch.bfloat16][0],
+            f"smoke_conv: max error {result['max_abs_err']} against F.conv2d")
+    say(f"smoke_conv {result['shape']}: kernel {result['kernel_us']} us, cuDNN"
+        f" {result['cudnn_us']} us, max |err| {result['max_abs_err']:.3g}")
+    return counts
+
+
+# --- phase 7: train ----------------------------------------------------------------
+def train_flags(data_dir, work_dir, seed):
+    flags = list(FLAGSHIP)
+    flags[flags.index("--dataset-dir") + 1] = str(data_dir)
+    flags[flags.index("--batch-size") + 1] = str(TRAIN_B)
+    return flags + [
+        "--work-dir", str(work_dir), "--seed", str(seed), "--env-name", "train",
+        "--gradient-accumulation", str(TRAIN_ACCUM), "--max-iters", str(TRAIN_ITERS),
+        "--test-every", "1000", "--test-samples", "2", "--num-workers", "4",
+    ]
+
+
+def train_phase(port, seed):
+    """The train CLI at the flagship config on a toy dataset of 2688 px
+    images; returns the launch counts of its runs (train, then resume)."""
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    start = time.perf_counter()
+    port.generate_toy_dataset(root / "toy", n_train=8, n_test=2, image_size=(GRID * PATCH,) * 2,
+                              seed=seed, box_size=(48, 200))
+    say(f"train: toy dataset of 8 + 2 images {GRID * PATCH}x{GRID * PATCH} in"
+        f" {time.perf_counter() - start:.1f} s")
+    flags = train_flags(root / "toy", root / "out", seed)
+    train_config, model_config = port.tconfig.args_to_config(port.tconfig.get_args(flags))
+    torch.manual_seed(seed)  # as the CLI seeds the model's init
+    init = port.GPT.from_config(model_config, port.get_actions_info(train_config),
+                                device="cpu").state_dict()
+    per_step = {"dwblock_bn_silu": STEPS * EXPECTED_PER_CALL["embedder"]["dwblock_bn_silu"],
+                "conv3x3_bn_silu": STEPS * EXPECTED_PER_CALL["embedder"]["conv3x3_bn_silu"],
+                "flash_attention": N_LAYER}
+
+    reset_launches(port)
+    start = time.perf_counter()
+    trainer = port.train_main(port.tconfig.get_args(flags))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    main_counts = read_launches(port)
+    metrics = {k: float(v) for k, v in trainer.last_train_metrics.items()}
+    say(f"train: {TRAIN_ITERS} iterations of B={TRAIN_B} (accumulation {TRAIN_ACCUM}) and the"
+        f" final test in {seconds:.1f} s; last step: loss {metrics['loss']:.4f}, action"
+        f" {metrics['action_loss']:.4f}, entropy {metrics['entropy_loss']:.4f}, yolo"
+        f" {metrics['yolo_loss']:.4f} ({metrics['yolo_num_fg']:.0f} fg anchors), returns"
+        f" {metrics['returns']:.4f}")
+    require(all(math.isfinite(v) for v in metrics.values()), f"train: non-finite metrics {metrics}")
+    require(trainer.step == TRAIN_ITERS and trainer.optimizer.updates == TRAIN_ITERS // TRAIN_ACCUM,
+            "train: step and update counts")
+    test_metrics = json.loads((trainer.checkpoint_dir / "metrics.json").read_text())
+    require(all(math.isfinite(v) for v in test_metrics.values()), "train: non-finite test metrics")
+
+    # The launch counts: one test alone, then the run against it.
+    reset_launches(port)
+    trainer.test()
+    test_counts = read_launches(port)
+    require(test_counts["flash_attention"] == 0 and test_counts["dwblock_bn_silu"] > 0,
+            f"train: the test's launches {test_counts}")
+    expected = {k: TRAIN_ITERS * per_step.get(k, 0) + test_counts[k] for k in KERNEL_NAMES}
+    if main_counts != expected:
+        raise AssertionError(f"train run: kernel launches {main_counts}, expected {expected}"
+                             f" ({TRAIN_ITERS} x {per_step} + the test's {test_counts})")
+    say(f"train run: kernel launches {main_counts} = {TRAIN_ITERS} x {per_step} per step"
+        f" + {test_counts} in the test, as expected")
+
+    # What moved: both optimizer groups and the detector's BN statistics;
+    # the embedder's statistics stay (it never runs in train mode).
+    state = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    changed = lambda pred: [k for k in state if pred(k) and not torch.equal(state[k], init[k])]
+    is_stat = lambda k: "running_" in k
+    for prefix in ("h.", "gpt_backbone_net.", "action_head.", "yolox.head.", "yolox.backbone."):
+        require(changed(lambda k: k.startswith(prefix) and not is_stat(k)),
+                f"train: no parameter under {prefix} moved")
+    require(changed(lambda k: k.startswith("yolox.") and is_stat(k)),
+            "train: the detector's BN statistics did not move")
+    require(not changed(lambda k: k.startswith("gpt_backbone_net.") and is_stat(k)),
+            "train: the embedder's BN statistics moved")
+    files = {p.name for p in trainer.checkpoint_dir.iterdir()}
+    require({"checkpoint.pt", "checkpoint_best.pt", "train_state.pt", "config.json",
+             "metrics.json"} <= files, f"train: checkpoint files {sorted(files)}")
+    say("train: both optimizer groups and the detector's BN statistics moved, the embedder's"
+        f" statistics did not; checkpoint written ({sorted(files)})")
+
+    # Phase times of two more steps (the second applies an update).
+    batch = trainer._build_env_batch([i % len(trainer.train_dataset) for i in range(TRAIN_B)],
+                                     seed)
+    for i in range(2):
+        trainer.phase_events = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(port)
+        start = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - start) * 1e3
+        check_launches(port, f"one train step B={TRAIN_B}", per_step)
+        marks = trainer.phase_events
+        trainer.phase_events = None
+        phases = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(marks, marks[1:])}
+        say(f"train step B={TRAIN_B} ({'update' if i else 'accumulate'}): {step_ms:.2f} ms wall;"
+            " device-clock phases " + ", ".join(f"{k} {v:.2f} ms" for k, v in phases.items())
+            + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    profile_run(f"train step B={TRAIN_B}", step_ms, lambda: trainer.train_step(batch),
+                unit=("train step", 1))
+
+    # One resumed iteration from the checkpoint on disk.
+    run_dir = trainer.checkpoint_dir
+    del trainer
+    reset_launches(port)
+    resumed = port.train_main(port.tconfig.get_args(
+        flags + ["--resume-training", str(run_dir), "--max-iters", "1"]))
+    torch.cuda.synchronize()
+    resume_counts = check_launches(port, "the resumed run", {
+        k: per_step.get(k, 0) + test_counts[k] for k in KERNEL_NAMES})
+    require(resumed.step == TRAIN_ITERS + 1, f"resume: step {resumed.step}")
+    require(resumed.optimizer.updates == TRAIN_ITERS // TRAIN_ACCUM
+            and resumed.optimizer.mini_step == 1, "resume: optimizer state")
+    say(f"train: resumed from {run_dir.name} at step {TRAIN_ITERS}, took step {resumed.step}")
+    return Counter(main_counts) + Counter(resume_counts)
+
+
+def import_port():
+    """The port's modules this script drives. In a directory that holds
+    this script and nothing else of the repo, this raises ImportError."""
+    from jolineedle_tpu_torch import config as tconfig
+    from jolineedle_tpu_torch.checkpoint import save_model
+    from jolineedle_tpu_torch.data.toy import generate_toy_dataset
+    from jolineedle_tpu_torch.env.actions import get_actions_info
+    from jolineedle_tpu_torch.main import main as train_main
+    from jolineedle_tpu_torch.models.gpt import GPT
+    from jolineedle_tpu_torch.ops import attention as kattn
+    from jolineedle_tpu_torch.ops import conv as kconv
+    from jolineedle_tpu_torch.ops.kernels import build_kernels
+
+    return SimpleNamespace(tconfig=tconfig, save_model=save_model,
+                           generate_toy_dataset=generate_toy_dataset,
+                           get_actions_info=get_actions_info, train_main=train_main, GPT=GPT,
+                           kattn=kattn, kconv=kconv, build_kernels=build_kernels)
 
 
 def main(argv=None) -> int:
@@ -509,13 +863,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 1
-    # Imported here: a directory with this script alone fails at this line.
-    from jolineedle_tpu_torch import config as tconfig
-    from jolineedle_tpu_torch.checkpoint import save_model
-    from jolineedle_tpu_torch.env.actions import get_actions_info
-    from jolineedle_tpu_torch.models.gpt import GPT
-    from jolineedle_tpu_torch.ops import conv as kconv
-    from jolineedle_tpu_torch.ops.kernels import build_kernels
+    port = import_port()
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -532,7 +880,7 @@ def main(argv=None) -> int:
 
     # 2. build
     start = time.perf_counter()
-    built = build_kernels()
+    built = port.build_kernels()
     say(f"build: {sorted(built)} in {time.perf_counter() - start:.2f} s")
     for name, (_, log) in built.items():
         for line in log.splitlines():
@@ -541,29 +889,36 @@ def main(argv=None) -> int:
 
     # The flagship model, with weights from the seed, written as a model dir.
     work_dir = ROOT / "build" / "chip_smoke"
-    train_config, model_config = tconfig.args_to_config(
-        tconfig.get_args(FLAGSHIP + ["--work-dir", str(work_dir), "--seed", str(args.seed)]))
-    actions_info = get_actions_info(train_config)
+    train_config, model_config = port.tconfig.args_to_config(
+        port.tconfig.get_args(FLAGSHIP + ["--work-dir", str(work_dir), "--seed", str(args.seed)]))
+    actions_info = port.get_actions_info(train_config)
     torch.manual_seed(args.seed)
-    model = GPT.from_config(model_config, actions_info).eval()
+    model = port.GPT.from_config(model_config, actions_info).eval()
     randomize_bn(model, args.seed)
-    tconfig.save_config(model_config, train_config)
+    port.tconfig.save_config(model_config, train_config)
     model_dir = work_dir / train_config.env_name
-    save_model(model, model_dir, best=True)
+    port.save_model(model, model_dir, best=True)
 
     # 3. kernels
     shapes = path_shapes(model)
-    rows = kernel_phase(kconv, shapes, args.seed)
+    rows = kernel_phase(port.kconv, shapes, args.seed)
+    new_rows = new_kernel_phase(port, args.seed)
 
     # 4. reference
     models = reference_phase(model_config, actions_info, model.state_dict(), args.seed)
     rollout_reference(models, train_config, args.seed)
-    del models
+    train_reference(models, model.state_dict(), train_config, args.seed)
+    del models, model
 
-    # 5. serve
-    launches = serve_phase(kconv, model_dir, args.seed)
+    # 5-7. the paths, each read on its own
+    by_path = {"serve": serve_phase(port, model_dir, args.seed),
+               "smoke_conv": Counter(smoke_conv_phase(port)),
+               "train": train_phase(port, args.seed)}
+    launches = sum(by_path.values(), Counter())
+    for name in KERNEL_NAMES:
+        require(launches[name] > 0, f"{name} was launched no time on its path")
 
-    print(json.dumps({"kernels": kernels_json(rows, launches)}), flush=True)
+    print(json.dumps({"kernels": kernels_json(rows, new_rows, launches, by_path)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

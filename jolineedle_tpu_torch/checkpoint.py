@@ -1,10 +1,12 @@
-"""Checkpoints of the port: the model's ``state_dict`` with ``torch.save``.
+"""Checkpoints of the port, written with ``torch.save``.
 
 A model directory holds ``config.json`` (``config.save_config``) beside
-``checkpoint.pt`` (last) and ``checkpoint_best.pt`` (best), the names of the
-JAX package's ``checkpoint.msgpack`` / ``checkpoint_best.msgpack``. Only the
-model is saved: the optimizer state waits for the training slices, and the
-JAX package's msgpack files are not read yet.
+``checkpoint.pt`` (last) and ``checkpoint_best.pt`` (best), each the model's
+``state_dict``: the names of the JAX package's ``checkpoint.msgpack`` /
+``checkpoint_best.msgpack``. A trainer adds ``train_state.pt``, the rest of
+its state at the last checkpoint (optimizer, step count, return window,
+random generator), which ``--resume-training`` restores with
+``checkpoint.pt``. The JAX package's msgpack files are not read yet.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 CKPT_LAST = "checkpoint.pt"
 CKPT_BEST = "checkpoint_best.pt"
+TRAIN_STATE = "train_state.pt"
 
 
 def save_model(model: torch.nn.Module, directory, best: bool = False) -> Path:
@@ -31,3 +34,15 @@ def load_model(model: torch.nn.Module, directory, best: bool = True) -> torch.nn
     state = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(state, strict=True)
     return model
+
+
+def save_train_state(state: dict, directory) -> Path:
+    """Write a trainer's non-model state (tensors, numbers, lists, dicts)."""
+    path = Path(directory) / TRAIN_STATE
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(state, path)
+    return path
+
+
+def load_train_state(directory) -> dict:
+    return torch.load(Path(directory) / TRAIN_STATE, map_location="cpu", weights_only=True)

@@ -1,134 +1,15 @@
 // Dense 3x3 stride-1 SAME conv -> folded eval BN -> SiLU for Hopper
-// (sm_90a), as an implicit GEMM: M = output pixels, N = K, depth = 9C.
-//
-// Replaces the Pallas TPU kernel jolineedle_tpu/ops/conv.py:50-93
-// (conv3x3_bn_silu), which built the im2col [HW, 9C] of a whole image in
-// VMEM and could not hold the Focus stem's 224x224x12 input. Here:
-//
-//   - one thread block computes an 8x8 tile of output pixels for a slice of
-//     up to kKT output channels (grid: tiles x K slices x images);
-//   - it walks the input channels kCC at a time: the halo tile of those
-//     channels and the matching [9][kCC][kKT] filter slice are staged in
-//     shared memory (zero outside the image: the SAME border is masked here,
-//     no padded copy and no im2col in HBM);
-//   - each thread keeps 4 neighbouring pixels x up to 4 output channels of
-//     float32 sums in registers, reusing every filter value 4 times.
-//
-// Float32 math on the CUDA cores; at the stem's C = 12, K = 16 the f32 form
-// is bound by operations, the bf16 form by bytes.
+// (sm_90a). Replaces the Pallas TPU kernel jolineedle_tpu/ops/conv.py:50-93
+// (conv3x3_bn_silu). The tiled implicit GEMM and its design notes are in
+// conv3x3_tile.cuh; this library instantiates it with the BN + SiLU
+// epilogue.
 
-#include "common.cuh"
-
-namespace {
-
-using namespace needle;
-
-constexpr int kCC = 16;  // input channels per shared-memory stage
-constexpr int kKT = 64;  // output channels per thread block
-constexpr int kQuads = kTileP / 4;                  // 4-pixel groups per tile
-constexpr int kPerThread = kQuads * kKT / kThreads;  // = 4
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ wf,
-               const float* __restrict__ scale, const float* __restrict__ bias,
-               T* __restrict__ out, int H, int W, int C, int K, int tiles_w) {
-  __shared__ float halo[kHaloP * kCC];   // [halo pixel][kCC]
-  __shared__ float wsm[9 * kCC * kKT];   // [tap][kCC][kKT]
-
-  const int b = blockIdx.z;
-  const int k0 = blockIdx.y * kKT;
-  const int kt = min(kKT, K - k0);
-  const int ty0 = (blockIdx.x / tiles_w) * kTileH;
-  const int tx0 = (blockIdx.x % tiles_w) * kTileW;
-  const T* img = x + (size_t)b * H * W * C;
-
-  float acc[kPerThread][4];
-#pragma unroll
-  for (int q = 0; q < kPerThread; ++q) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[q][j] = 0.0f;
-  }
-
-  for (int c0 = 0; c0 < C; c0 += kCC) {
-    const int cw = min(kCC, C - c0);
-    __syncthreads();  // the previous stage's reads are done
-    load_halo(img, halo, H, W, C, ty0, tx0, c0, cw, kCC);
-    for (int i = threadIdx.x; i < 9 * kCC * kKT; i += kThreads) {
-      const int kk = i % kKT;
-      const int c = (i / kKT) % kCC;
-      const int tap = i / (kKT * kCC);
-      float v = 0.0f;
-      if (c < cw && kk < kt) v = __ldg(&wf[((size_t)tap * C + c0 + c) * K + k0 + kk]);
-      wsm[i] = v;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int q = 0; q < kPerThread; ++q) {
-      const int i = threadIdx.x + q * kThreads;
-      if (i < kQuads * kt) {
-        const int kk = i % kt;
-        const int p0 = (i / kt) * 4;  // 4 pixels of one tile row
-        const int py = p0 / kTileW, px = p0 % kTileW;
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
-          const float* h = halo + ((py + tap / 3) * kHaloW + px + tap % 3) * kCC;
-          const float* w = wsm + tap * kCC * kKT + kk;
-#pragma unroll
-          for (int c = 0; c < kCC; ++c) {
-            const float wv = w[c * kKT];
-            acc[q][0] += h[c] * wv;
-            acc[q][1] += h[kCC + c] * wv;
-            acc[q][2] += h[2 * kCC + c] * wv;
-            acc[q][3] += h[3 * kCC + c] * wv;
-          }
-        }
-      }
-    }
-  }
-
-  T* outb = out + (size_t)b * H * W * K;
-#pragma unroll
-  for (int q = 0; q < kPerThread; ++q) {
-    const int i = threadIdx.x + q * kThreads;
-    if (i < kQuads * kt) {
-      const int k = k0 + i % kt;
-      const int p0 = (i / kt) * 4;
-      const int gy = ty0 + p0 / kTileW;
-      const float sc = __ldg(&scale[k]), bi = __ldg(&bias[k]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gx = tx0 + p0 % kTileW + j;
-        if (gy < H && gx < W) {
-          outb[((size_t)gy * W + gx) * K + k] = from_f32<T>(silu(acc[q][j] * sc + bi));
-        }
-      }
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const void* wf, const void* scale, const void* bias,
-                   void* out, int B, int H, int W, int C, int K, cudaStream_t stream) {
-  const int tiles_h = (H + kTileH - 1) / kTileH;
-  const int tiles_w = (W + kTileW - 1) / kTileW;
-  dim3 grid(tiles_h * tiles_w, (K + kKT - 1) / kKT, B);
-  conv3x3_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(wf),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<T*>(out), H, W, C, K, tiles_w);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "conv3x3_tile.cuh"
 
 extern "C" int conv3x3_bn_silu(const void* x, const void* wf, const void* scale,
                                const void* bias, void* out, int B, int H, int W,
                                int C, int K, int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16
-      ? launch<__nv_bfloat16>(x, wf, scale, bias, out, B, H, W, C, K, s)
-      : launch<float>(x, wf, scale, bias, out, B, H, W, C, K, s);
-  return static_cast<int>(err);
+  return static_cast<int>(needle::launch_conv3x3<true>(
+      x, wf, scale, bias, out, B, H, W, C, K, is_bf16,
+      static_cast<cudaStream_t>(stream)));
 }

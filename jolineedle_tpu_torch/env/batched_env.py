@@ -3,12 +3,14 @@
 The counterpart of ``jolineedle_tpu/env/batched_env.py`` with one glimpse
 level (the RL and serving paths use one, ``reinforce.py:104``): ``reset``,
 ``step``, ``masked_step``, ``terminated``, the rewards (with
-``stop_bonus_scale``), the patch gather and the found-proportion metrics.
+``stop_bonus_scale``), the patch gather, the found-proportion metrics and
+the detection training batch (``get_detection_batch``).
 Every method is a few tensor ops on the images' device with fixed shapes and
 no host synchronisation, so a rollout loop over it never waits on the card.
 
-The bbox -> patch masks are built once on the host with the numpy
-``parsing.boxes_to_patch_mask`` and moved to the device. The glimpse pyramid
+The bbox -> patch masks and the boxes cut to each patch are built once on
+the host with the numpy ``parsing.split_boxes_to_patches`` and moved to the
+device. The glimpse pyramid
 (``n_glimps_levels > 1``) is not ported yet and raises.
 """
 
@@ -21,7 +23,7 @@ import torch
 
 from .. import resolve_device
 from .actions import ACTION_DELTAS_ARRAY, Action
-from .parsing import boxes_to_patch_mask
+from .parsing import split_boxes_to_patches
 
 
 class EnvState(NamedTuple):
@@ -89,14 +91,18 @@ class NeedleEnv:
         if box_valid is None:
             box_valid = (bboxes[..., 2] > bboxes[..., 0]) & (bboxes[..., 3] > bboxes[..., 1])
         box_valid = np.asarray(box_valid, bool)
-        masks = np.stack([
-            boxes_to_patch_mask(b, v, self.n_vertical_patches, self.n_horizontal_patches,
-                                self.patch_size)
+        split = [
+            split_boxes_to_patches(b, v, self.n_vertical_patches, self.n_horizontal_patches,
+                                   self.patch_size)
             for b, v in zip(bboxes, box_valid)
-        ])
+        ]
         self.bboxes = torch.from_numpy(bboxes).to(self.device)
         self.box_valid = torch.from_numpy(box_valid).to(self.device)
-        self.bbox_masks = torch.from_numpy(masks).to(self.device)
+        # [B, nv, nh, N, 4] local xyxy and [B, nv, nh, N] validity
+        self.local_bboxes = torch.from_numpy(
+            np.stack([local for local, _ in split]).astype(np.float32)).to(self.device)
+        self.local_valid = torch.from_numpy(np.stack([m for _, m in split])).to(self.device)
+        self.bbox_masks = self.local_valid.any(dim=-1)
         self._deltas = torch.from_numpy(ACTION_DELTAS_ARRAY).long().to(self.device)
         self._rows = torch.arange(self.batch_size, device=self.device)
 
@@ -197,6 +203,55 @@ class NeedleEnv:
         )
         patches = tiled[self._rows, state.positions[:, 0], :, state.positions[:, 1]]
         return self._normalize(patches)[:, None]
+
+    def gather_patches_at(self, coords: torch.Tensor) -> torch.Tensor:
+        """The ``[B, K, P, P, C]`` float32 patches at ``[B, K, 2]`` (y, x)
+        patch coordinates (``batched_env.py:331-344``)."""
+        p = self.patch_size
+        tiled = self.images.view(
+            self.batch_size, self.n_vertical_patches, p, self.n_horizontal_patches, p,
+            self.n_channels,
+        )
+        rows = self._rows[:, None].expand(coords.shape[:2])
+        return self._normalize(tiled[rows, coords[..., 0], :, coords[..., 1]])
+
+    def get_detection_batch(self, generator: torch.Generator, max_patches: int,
+                            sample_neg: int = 1):
+        """Fixed-shape detection training batch (``batched_env.py:375-429``):
+        every patch that holds a box, plus ``sample_neg`` random negatives
+        per image, capped at ``max_patches``; ``generator`` (on the env's
+        device) draws the ranking noise.
+
+        Returns ``patches [B, K, P, P, C]`` (float32), ``targets [B, K, N, 6]``
+        rows (cls, x1, y1, x2, y2, obj) in local pixels, ``patch_valid
+        [B, K]`` bool.
+        """
+        nv, nh = self.n_vertical_patches, self.n_horizontal_patches
+        flat_pos = self.bbox_masks.reshape(self.batch_size, nv * nh)
+        noise = torch.rand(flat_pos.shape, generator=generator, device=self.device)
+        # Negatives ranked among themselves (positives pushed to +inf).
+        inf = torch.full_like(noise, float("inf"))
+        neg_rank = torch.argsort(
+            torch.argsort(torch.where(flat_pos, inf, noise), dim=-1, stable=True),
+            dim=-1, stable=True,
+        )
+        score = torch.where(
+            flat_pos, 2.0, torch.where(neg_rank < sample_neg, 1.0, 0.0)
+        ) + 1e-3 * noise
+        idx = score.topk(max_patches, dim=-1).indices  # [B, K]
+        patch_valid = flat_pos.gather(1, idx) | (neg_rank.gather(1, idx) < sample_neg)
+
+        coords = torch.stack([idx // nh, idx % nh], dim=-1)  # [B, K, 2] (y, x)
+        patches = self.gather_patches_at(coords)
+        rows = self._rows[:, None]
+        tgt_boxes = self.local_bboxes[rows, coords[..., 0], coords[..., 1]]  # [B, K, N, 4]
+        tgt_valid = self.local_valid[rows, coords[..., 0], coords[..., 1]]  # [B, K, N]
+        targets = torch.cat(
+            [torch.zeros_like(tgt_boxes[..., :1]), tgt_boxes, tgt_valid[..., None].float()],
+            dim=-1,
+        )
+        targets = targets * patch_valid[..., None, None].float()
+        return patches, targets, patch_valid
 
     def _normalize(self, patches: torch.Tensor) -> torch.Tensor:
         if patches.dtype == torch.uint8:

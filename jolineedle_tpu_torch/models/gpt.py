@@ -12,8 +12,15 @@ attention and the block Dense layers run in the compute dtype; LayerNorm
 fusion are float32; GELU is the tanh approximation; attention masks with
 -1e30 and takes its softmax in float32. Dense kernels ``[in, out]`` of the
 JAX package are ``nn.Linear`` weights ``[out, in]`` here (see
-``models/bridge.py``). Eval only: dropout is the identity, and
-``train=True`` raises ``NotImplementedError``.
+``models/bridge.py``).
+
+The teacher-forced ``forward`` attends through ``ops.attention.
+causal_attention``: the flash kernel on the card. ``train=True`` turns on
+dropout (drawn from an explicit ``torch.Generator``, flax's keep-and-rescale)
+and batch-statistics BatchNorm in the embedder. The YOLOX convs take the
+fused eval kernels only when neither ``train`` nor autograd needs them
+(``models/yolox.py``): the no-grad rollout runs the kernels, a forward that
+is differentiated runs PyTorch convs.
 """
 
 from __future__ import annotations
@@ -26,9 +33,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..ops.attention import NEG_INF, causal_attention_reference
+from ..ops.attention import NEG_INF, causal_attention
 from .positional import positional_encoding_1d, positional_encoding_2d
-from .yolox import YOLOPAFPN, YOLOX_VARIANTS, NeedleYOLOX, _eval_only
+from .yolox import YOLOPAFPN, YOLOX_VARIANTS, NeedleYOLOX
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -51,7 +58,8 @@ class CausalSelfAttention(nn.Module):
         self.c_attn = nn.Linear(n_embd, 3 * n_embd)
         self.c_proj = nn.Linear(n_embd, n_embd)
 
-    def forward(self, x, cache: Optional[dict] = None, cache_index: Optional[int] = None):
+    def forward(self, x, cache: Optional[dict] = None, cache_index: Optional[int] = None,
+                drop=None):
         B, T, C = x.shape
         hd = C // self.n_head
         q, k, v = _dense(self.c_attn, x, self.dtype).split(C, dim=-1)
@@ -59,7 +67,7 @@ class CausalSelfAttention(nn.Module):
         k = k.reshape(B, T, self.n_head, hd)
         v = v.reshape(B, T, self.n_head, hd)
         if cache is None:
-            y = causal_attention_reference(
+            y = causal_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             ).transpose(1, 2)
         else:
@@ -78,7 +86,8 @@ class CausalSelfAttention(nn.Module):
             att = att.masked_fill(~visible, NEG_INF)
             att = torch.softmax(att.float(), dim=-1).to(q.dtype)
             y = torch.einsum("bhqk,bkhd->bqhd", att, cv)
-        return _dense(self.c_proj, y.reshape(B, T, C), self.dtype)
+        y = _dense(self.c_proj, y.reshape(B, T, C), self.dtype)
+        return y if drop is None else drop(y)
 
 
 class Block(nn.Module):
@@ -93,11 +102,11 @@ class Block(nn.Module):
         self.c_fc = nn.Linear(n_embd, 4 * n_embd)
         self.c_proj = nn.Linear(4 * n_embd, n_embd)
 
-    def forward(self, x, cache=None, cache_index=None):
-        x = x + self.attn(_layer_norm(self.ln_1, x), cache, cache_index)
+    def forward(self, x, cache=None, cache_index=None, drop=None):
+        x = x + self.attn(_layer_norm(self.ln_1, x), cache, cache_index, drop)
         h = _dense(self.c_fc, _layer_norm(self.ln_2, x), self.dtype)
-        h = F.gelu(h, approximate="tanh")
-        return x + _dense(self.c_proj, h, self.dtype)
+        h = _dense(self.c_proj, F.gelu(h, approximate="tanh"), self.dtype)
+        return x + (h if drop is None else drop(h))
 
 
 class ActionHead(nn.Module):
@@ -137,6 +146,7 @@ class GPT(nn.Module):
         concat_emb: bool,
         decoder_pos_encoding: bool,
         pos_emb_size: int,
+        dropout: float = 0.0,
         detector_conf_threshold: float = 0.5,
         compute_dtype: torch.dtype = torch.float32,
         device=None,
@@ -149,6 +159,7 @@ class GPT(nn.Module):
         self.gpt_backbone = gpt_backbone
         self.use_pos_emb, self.no_patch_emb = use_pos_emb, no_patch_emb
         self.concat_emb = concat_emb
+        self.dropout = float(dropout)
         self.decoder_pos_encoding = decoder_pos_encoding
         self.detector_conf_threshold = detector_conf_threshold
         self.compute_dtype = compute_dtype
@@ -200,6 +211,7 @@ class GPT(nn.Module):
             concat_emb=model_config.concat_emb,
             decoder_pos_encoding=model_config.decoder_pos_encoding,
             pos_emb_size=model_config.pos_emb_size,
+            dropout=model_config.dropout,
             detector_conf_threshold=model_config.detector_conf_threshold,
             compute_dtype=dtype,
             device=device,
@@ -216,13 +228,18 @@ class GPT(nn.Module):
             patches = patches.float() / 255.0
         return patches.to(self.compute_dtype).permute(0, 3, 1, 2)
 
-    def embed_patches(self, patches: torch.Tensor) -> torch.Tensor:
+    def embed_patches(self, patches: torch.Tensor, train: bool = False) -> torch.Tensor:
         """[B, T, P, P, C] -> [B, T, D] via the backbone's FPN top level
-        (``gpt.py:246-267``)."""
+        (``gpt.py:246-267``). With a shared detector (no ``gpt_backbone``)
+        the gradient stops at the FPN, so the decision loss never reaches
+        the detector; a ``gpt_backbone`` embedder is trained by it."""
         B, T = patches.shape[:2]
         flat = self._to_compute(patches.reshape((B * T,) + patches.shape[2:]))
-        backbone = self.gpt_backbone_net if self.gpt_backbone else self.yolox.backbone
-        top = backbone(flat)[-1]
+        autograd = train or torch.is_grad_enabled()
+        if self.gpt_backbone:
+            top = self.gpt_backbone_net(flat, train, autograd)[-1]
+        else:
+            top = self.yolox.backbone(flat, train, autograd)[-1].detach()
         x = F.conv2d(top, self.embed_fpn_conv.weight.to(top.dtype))
         x = F.relu(x)
         # The JAX module flattens NHWC: permute before flattening, or the
@@ -235,11 +252,11 @@ class GPT(nn.Module):
             return positional_encoding_1d(seq_positions, self.n_embd)
         return self.wpe(seq_positions)
 
-    def _fuse_tokens(self, actions, seq_positions, patches, positions):
+    def _fuse_tokens(self, actions, seq_positions, patches, positions, train=False):
         """Concat order: wte, seq-pos, patch, grid-pos (``gpt.py:281-297``)."""
         embeddings = [self.wte(actions), self.embed_token_positions(seq_positions)]
         if not self.no_patch_emb:
-            embeddings.append(self.embed_patches(patches))
+            embeddings.append(self.embed_patches(patches, train))
         if self.use_pos_emb:
             embeddings.append(positional_encoding_2d(positions, self.n_embd))
         if self.concat_emb:
@@ -247,18 +264,39 @@ class GPT(nn.Module):
         return torch.stack(embeddings, dim=2).mean(dim=2)
 
     # --- full (teacher-forced) forward ---------------------------------------
-    def forward(self, patches, actions, classes, positions=None, train: bool = False):
-        """Returns (action_logits [B, T, n_actions], final embeddings)."""
-        _eval_only(train)
+    def _dropout(self, train: bool, generator: Optional[torch.Generator]):
+        """flax ``nn.Dropout``: keep with probability 1 - p and rescale by
+        1 / (1 - p); None where it is the identity."""
+        if not train or self.dropout == 0.0:
+            return None
+        if generator is None:
+            raise ValueError("train=True with dropout > 0 needs a torch.Generator")
+        keep = 1.0 - self.dropout
+
+        def drop(x):
+            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            return torch.where(mask, x / keep, torch.zeros_like(x))
+
+        return drop
+
+    def forward(self, patches, actions, classes, positions=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Returns (action_logits [B, T, n_actions], final embeddings).
+
+        ``train`` turns on dropout (drawn from ``generator``) and
+        batch-statistics BatchNorm in the embedder (``gpt.py:300-326``)."""
         B, T = actions.shape
         if T > self.block_size:
             raise ValueError(f"seq len {T} > block size {self.block_size}")
+        drop = self._dropout(train, generator)
         seq_positions = torch.arange(T, device=actions.device).expand(B, T)
-        tokens = self._fuse_tokens(actions, seq_positions, patches, positions)
+        tokens = self._fuse_tokens(actions, seq_positions, patches, positions, train)
         x = torch.cat([self.embed_class(classes)[:, None, :], tokens], dim=1)
+        if drop is not None:
+            x = drop(x)
         x = x.to(self.compute_dtype)
         for block in self.h:
-            x = block(x)
+            x = block(x, drop=drop)
         x = _layer_norm(self.ln_f, x)
         logits = self.action_head(x)
         return logits[:, self.token_offset :], x
@@ -311,5 +349,8 @@ class GPT(nn.Module):
 
     # --- detector -------------------------------------------------------------
     def yolox_outputs(self, patches: torch.Tensor, train: bool = False):
-        """Raw YOLOX head outputs and FPN levels on [B, P, P, C] patches."""
-        return self.yolox(self._to_compute(patches), train)
+        """Raw YOLOX head outputs and FPN levels on [B, P, P, C] patches.
+        ``train``: batch-statistics BatchNorm (the detection loss of a train
+        step); the fused kernels run only with neither ``train`` nor grad."""
+        autograd = train or torch.is_grad_enabled()
+        return self.yolox(self._to_compute(patches), train, autograd)

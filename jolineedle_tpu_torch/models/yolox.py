@@ -11,10 +11,21 @@ so the NHWC view that the fused kernels of ``ops/conv.py`` take
 upsampling work on the same tensors. The convs run in the input's dtype (the
 model's compute dtype); BatchNorm and SiLU are applied in float32.
 
-Eval mode only: the serving path folds BatchNorm to a per-channel scale and
-bias. ``train=True`` (batch-statistics BatchNorm) raises
-``NotImplementedError`` until the training slice, so nothing quietly
-bypasses the kernels.
+Every ``forward`` takes two explicit flags, passed down the tree:
+
+- ``train``: BatchNorm on batch statistics, as flax's
+  ``BatchNorm(use_running_average=False, momentum=0.97, epsilon=1e-3)``:
+  mean and biased variance (E[x^2] - E[x]^2, clipped at 0) over N, H, W in
+  float32, and the running statistics updated in place with the biased
+  variance (torch's own ``running_var`` update would use the unbiased one);
+- ``autograd``: PyTorch convs that autograd can differentiate, with eval
+  BatchNorm.
+
+With neither, the stride-1 3x3 blocks run the eval-only fused kernels (the
+serving path and the no-grad rollout). With either, every conv is a PyTorch
+conv: the JAX trainer ran these convs in XLA outside any Pallas kernel, and
+the kernels have no backward. The caller chooses; nothing catches a kernel's
+error to switch routes.
 """
 
 from __future__ import annotations
@@ -42,14 +53,6 @@ YOLOX_VARIANTS = {
 STRIDES = (8, 16, 32)
 
 
-def _eval_only(train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            "train-mode (batch-statistics) BatchNorm is not ported yet; the"
-            " serving path runs in eval mode"
-        )
-
-
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     """NCHW tensor -> contiguous NHWC view (free for channels_last memory)."""
     return x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
@@ -69,16 +72,41 @@ def _bn_args(bn: nn.BatchNorm2d):
     return bn.weight, bn.bias, bn.running_mean, bn.running_var
 
 
-class ConvBnAct(nn.Module):
-    """Conv (no bias) + eval BatchNorm + SiLU (upstream ``BaseConv``).
+def _chain(modules, x, train: bool, autograd: bool):
+    """Apply ``modules`` in order, passing both flags to each."""
+    for m in modules:
+        x = m(x, train, autograd)
+    return x
 
-    A dense 3x3 stride-1 conv (``groups == 1``) runs as one call of
-    ``ops.conv.conv3x3_bn_silu``, the Hopper kernel that replaces the Pallas
-    ``conv3x3_bn_silu``; on yolox-nano that is only the Focus stem
-    (224x224, 12 -> 16 at 448 px). Every other shape — 1x1 convs, stride-2
-    downsamples, the depthwise half of a DWConv — stays a PyTorch conv
-    followed by the folded BN and SiLU: the JAX package left those to XLA
-    outside any Pallas kernel.
+
+def batch_norm_train(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
+    """flax ``BatchNorm(use_running_average=False)`` on NCHW ``y``, in
+    float32: normalise by the batch mean and biased variance (E[y^2] -
+    E[y]^2, clipped at 0, flax's fast variance) and update the running
+    statistics in place, ``r = (1 - m) r + m * stat`` with torch's momentum
+    ``m = 1 - 0.97`` and the biased variance (``yolox.py:59-64``)."""
+    yf = y.float()
+    mean = yf.mean(dim=(0, 2, 3))
+    var = ((yf * yf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(mean.detach(), alpha=bn.momentum)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(var.detach(), alpha=bn.momentum)
+        bn.num_batches_tracked.add_(1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (yf - mean[:, None, None]) * mul[:, None, None] + bn.bias[:, None, None]
+
+
+class ConvBnAct(nn.Module):
+    """Conv (no bias) + BatchNorm + SiLU (upstream ``BaseConv``).
+
+    In eval mode without autograd a dense 3x3 stride-1 conv (``groups ==
+    1``) runs as one call of ``ops.conv.conv3x3_bn_silu``, the Hopper kernel
+    that replaces the Pallas ``conv3x3_bn_silu``; on yolox-nano that is only
+    the Focus stem (224x224, 12 -> 16 at 448 px). Every other shape — 1x1
+    convs, stride-2 downsamples, the depthwise half of a DWConv — and every
+    conv under ``train`` or ``autograd`` is a PyTorch conv followed by BN
+    (folded, or batch statistics) and SiLU: the JAX package left those to
+    XLA outside any Pallas kernel.
     """
 
     def __init__(self, in_ch: int, out_ch: int, ksize: int = 1, stride: int = 1,
@@ -93,18 +121,21 @@ class ConvBnAct(nn.Module):
     def uses_conv3x3_kernel(self) -> bool:
         return self.conv.kernel_size == (3, 3) and self.stride == 1 and self.groups == 1
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        _eval_only(train)
-        if self.uses_conv3x3_kernel:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                autograd: bool = False) -> torch.Tensor:
+        if self.uses_conv3x3_kernel and not (train or autograd):
             return _nchw(conv3x3_bn_silu(
                 _nhwc(x), _hwio(self.conv.weight), *_bn_args(self.bn),
                 eps=self.bn.eps,
             ))
         y = F.conv2d(x, self.conv.weight.to(x.dtype), None, self.conv.stride,
                      self.conv.padding, 1, self.groups)
-        scale, bias = fold_bn(*_bn_args(self.bn), self.bn.eps)
-        y = F.silu(y.float() * scale[:, None, None] + bias[:, None, None])
-        return y.to(x.dtype)
+        if train:
+            y = batch_norm_train(self.bn, y)
+        else:
+            scale, bias = fold_bn(*_bn_args(self.bn), self.bn.eps)
+            y = y.float() * scale[:, None, None] + bias[:, None, None]
+        return F.silu(y).to(x.dtype)
 
 
 class DWConv(nn.Module):
@@ -114,8 +145,9 @@ class DWConv(nn.Module):
     ``ops.conv.dwblock_bn_silu``, the Hopper kernel that replaces the Pallas
     ``dwblock_bn_silu``: on yolox-nano at 448 px that is every Bottleneck's
     DWConv (112²·16, 56²·32, 28²·64, 14²·128) and every head conv (64
-    channels at 56², 28², 14²). At stride 2 (the downsamples) the two
-    halves are PyTorch convs, as XLA computed them outside Pallas.
+    channels at 56², 28², 14²), in eval mode without autograd. At stride 2
+    (the downsamples), and under ``train`` or ``autograd``, the two halves
+    are PyTorch convs, as XLA computed them outside Pallas.
     """
 
     def __init__(self, in_ch: int, out_ch: int, ksize: int = 3, stride: int = 1):
@@ -128,15 +160,15 @@ class DWConv(nn.Module):
     def uses_dwblock_kernel(self) -> bool:
         return self.stride == 1 and self.dconv.conv.kernel_size == (3, 3)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        _eval_only(train)
-        if self.uses_dwblock_kernel:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                autograd: bool = False) -> torch.Tensor:
+        if self.uses_dwblock_kernel and not (train or autograd):
             d, p = self.dconv, self.pconv
             return _nchw(dwblock_bn_silu(
                 _nhwc(x), _hwio(d.conv.weight), *_bn_args(d.bn),
                 _hwio(p.conv.weight), *_bn_args(p.bn), eps=d.bn.eps,
             ))
-        return self.pconv(self.dconv(x))
+        return self.pconv(self.dconv(x, train, autograd), train, autograd)
 
 
 def _base_conv(depthwise: bool):
@@ -151,8 +183,8 @@ class Bottleneck(nn.Module):
         self.conv2 = _base_conv(depthwise)(hidden, out_ch, 3, 1)
         self.use_add = shortcut and in_ch == out_ch
 
-    def forward(self, x):
-        y = self.conv2(self.conv1(x))
+    def forward(self, x, train=False, autograd=False):
+        y = self.conv2(self.conv1(x, train, autograd), train, autograd)
         return y + x if self.use_add else y
 
 
@@ -168,8 +200,10 @@ class CSPLayer(nn.Module):
             *[Bottleneck(hidden, hidden, shortcut, 1.0, depthwise) for _ in range(n)]
         )
 
-    def forward(self, x):
-        return self.conv3(torch.cat((self.m(self.conv1(x)), self.conv2(x)), dim=1))
+    def forward(self, x, train=False, autograd=False):
+        x1 = _chain(self.m, self.conv1(x, train, autograd), train, autograd)
+        x2 = self.conv2(x, train, autograd)
+        return self.conv3(torch.cat((x1, x2), dim=1), train, autograd)
 
 
 class SPPBottleneck(nn.Module):
@@ -182,9 +216,9 @@ class SPPBottleneck(nn.Module):
         )
         self.conv2 = ConvBnAct(hidden * (len(kernel_sizes) + 1), out_ch, 1, 1)
 
-    def forward(self, x):
-        x = self.conv1(x)
-        return self.conv2(torch.cat([x] + [m(x) for m in self.m], dim=1))
+    def forward(self, x, train=False, autograd=False):
+        x = self.conv1(x, train, autograd)
+        return self.conv2(torch.cat([x] + [m(x) for m in self.m], dim=1), train, autograd)
 
 
 class Focus(nn.Module):
@@ -195,12 +229,12 @@ class Focus(nn.Module):
         super().__init__()
         self.conv = ConvBnAct(in_ch * 4, out_ch, ksize, stride)
 
-    def forward(self, x):
+    def forward(self, x, train=False, autograd=False):
         tl = x[..., ::2, ::2]
         bl = x[..., 1::2, ::2]
         tr = x[..., ::2, 1::2]
         br = x[..., 1::2, 1::2]
-        return self.conv(torch.cat((tl, bl, tr, br), dim=1))
+        return self.conv(torch.cat((tl, bl, tr, br), dim=1), train, autograd)
 
 
 class CSPDarknet(nn.Module):
@@ -229,11 +263,11 @@ class CSPDarknet(nn.Module):
                      depthwise=depthwise),
         )
 
-    def forward(self, x):
-        x = self.dark2(self.stem(x))
-        c3 = self.dark3(x)
-        c4 = self.dark4(c3)
-        c5 = self.dark5(c4)
+    def forward(self, x, train=False, autograd=False):
+        x = _chain(self.dark2, self.stem(x, train, autograd), train, autograd)
+        c3 = _chain(self.dark3, x, train, autograd)
+        c4 = _chain(self.dark4, c3, train, autograd)
+        c5 = _chain(self.dark5, c4, train, autograd)
         return c3, c4, c5
 
 
@@ -256,15 +290,15 @@ class YOLOPAFPN(nn.Module):
         self.bu_conv1 = Conv(ch[1], ch[1], 3, 2)
         self.C3_n4 = CSPLayer(2 * ch[1], ch[2], n, False, depthwise=depthwise)
 
-    def forward(self, x, train: bool = False):
-        _eval_only(train)
-        x2, x1, x0 = self.backbone(x.contiguous(memory_format=torch.channels_last))
-        fpn_out0 = self.lateral_conv0(x0)
-        f_out0 = self.C3_p4(torch.cat([self.upsample(fpn_out0), x1], 1))
-        fpn_out1 = self.reduce_conv1(f_out0)
-        pan_out2 = self.C3_p3(torch.cat([self.upsample(fpn_out1), x2], 1))
-        pan_out1 = self.C3_n3(torch.cat([self.bu_conv2(pan_out2), fpn_out1], 1))
-        pan_out0 = self.C3_n4(torch.cat([self.bu_conv1(pan_out1), fpn_out0], 1))
+    def forward(self, x, train: bool = False, autograd: bool = False):
+        f = dict(train=train, autograd=autograd)
+        x2, x1, x0 = self.backbone(x.contiguous(memory_format=torch.channels_last), **f)
+        fpn_out0 = self.lateral_conv0(x0, **f)
+        f_out0 = self.C3_p4(torch.cat([self.upsample(fpn_out0), x1], 1), **f)
+        fpn_out1 = self.reduce_conv1(f_out0, **f)
+        pan_out2 = self.C3_p3(torch.cat([self.upsample(fpn_out1), x2], 1), **f)
+        pan_out1 = self.C3_n3(torch.cat([self.bu_conv2(pan_out2, **f), fpn_out1], 1), **f)
+        pan_out0 = self.C3_n4(torch.cat([self.bu_conv1(pan_out1, **f), fpn_out0], 1), **f)
         return pan_out2, pan_out1, pan_out0
 
 
@@ -309,18 +343,16 @@ class YOLOXHead(nn.Module):
             self.reg_preds.append(nn.Conv2d(hidden, 4, 1))
             self.obj_preds.append(nn.Conv2d(hidden, 1, 1))
 
-    def forward(self, features, train: bool = False) -> dict:
-        _eval_only(train)
-
+    def forward(self, features, train: bool = False, autograd: bool = False) -> dict:
         def pred(conv, feat):  # 1x1 conv with bias, in the compute dtype
             y = F.conv2d(feat, conv.weight.to(feat.dtype), conv.bias.to(feat.dtype))
             return y.permute(0, 2, 3, 1).reshape(feat.shape[0], -1, conv.out_channels)
 
         raw_regs, obj_logits, cls_logits = [], [], []
         for i, f in enumerate(features):
-            x = self.stems[i](f)
-            cls_feat = self.cls_convs[i](x)
-            reg_feat = self.reg_convs[i](x)
+            x = self.stems[i](f, train, autograd)
+            cls_feat = _chain(self.cls_convs[i], x, train, autograd)
+            reg_feat = _chain(self.reg_convs[i], x, train, autograd)
             cls_logits.append(pred(self.cls_preds[i], cls_feat))
             raw_regs.append(pred(self.reg_preds[i], reg_feat))
             obj_logits.append(pred(self.obj_preds[i], reg_feat)[..., 0])
@@ -358,6 +390,6 @@ class NeedleYOLOX(nn.Module):
         self.head = YOLOXHead(num_classes, width, depthwise)
         self.to(resolve_device(device))
 
-    def forward(self, patches, train: bool = False):
-        fpn_outs = self.backbone(patches, train)
-        return self.head(fpn_outs, train), fpn_outs
+    def forward(self, patches, train: bool = False, autograd: bool = False):
+        fpn_outs = self.backbone(patches, train, autograd)
+        return self.head(fpn_outs, train, autograd), fpn_outs

@@ -1,10 +1,25 @@
-"""Causal self-attention over [B, H, T, D], plain PyTorch.
+"""Causal self-attention over [B, H, T, D]: a Hopper kernel and its plain
+PyTorch version.
 
-The counterpart of ``jolineedle_tpu/ops/attention.py:36-48``
-(``causal_attention_reference``), which is what the JAX package's
-``causal_attention`` dispatches everywhere (``attention.py:138-158``). The
-Pallas ``flash_attention`` of that module is not on the serving path (which
-decodes one query against a KV cache) and goes to the training slice.
+The counterpart of ``jolineedle_tpu/ops/attention.py``:
+
+- ``flash_attention_reference`` (alias ``causal_attention_reference``) is
+  ``attention.py:36-48``, the jnp oracle: masks with -1e30, takes the softmax
+  in float32 and casts the probabilities to q's dtype before the PV product;
+- ``flash_attention`` replaces the Pallas ``flash_attention``
+  (``attention.py:101``, kernel ``_flash_kernel``) with ``csrc/
+  flash_attention.cu``. Like the Pallas kernel it keeps the probabilities in
+  float32 and rounds the output once to q's dtype: in float32 the two
+  versions agree to ~1e-6, in bfloat16 by less than an output ulp.
+
+``causal_attention`` is what the teacher-forced decoder calls: on a CPU
+tensor the plain version, on a CUDA tensor the kernel (or it raises: there is
+no fallback). The JAX package sends this call to the jnp reference on the TPU
+(``attention.py:138-158``); the port runs the kernel on the card. The KV-cache
+decode (one query per step) does not come here.
+
+The wrapper counts, as plain integers on the function object, ``calls``
+(every call), ``launches`` (kernel launches) and ``backward_calls``.
 """
 
 from __future__ import annotations
@@ -13,10 +28,14 @@ import math
 
 import torch
 
+from .kernels import kernel
+
 NEG_INF = -1e30
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+KERNEL_HEAD_DIMS = (16, 32, 64)
 
 
-def causal_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """[B, H, T, D] causal attention; masks with -1e30 and takes the
     softmax in float32 (``attention.py:36-48``)."""
     d, t = q.shape[-1], q.shape[2]
@@ -27,3 +46,134 @@ def causal_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     att = att.masked_fill(~causal, NEG_INF)
     att = torch.softmax(att.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", att, v)
+
+
+causal_attention_reference = flash_attention_reference
+
+
+def flash_attention_forward_reference(q, k, v):
+    """The kernel's two outputs in float32 PyTorch ops: the attention (in
+    q's dtype, probabilities kept in float32 as the kernel keeps them) and
+    the per-row log-sum-exp of the scaled scores, ``[B, H, T]``."""
+    d, t = q.shape[-1], q.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~causal, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype), lse
+
+
+def flash_attention_backward(q, k, v, o, lse, do):
+    """dq, dk, dv of causal attention from the saved forward (``o`` and the
+    log-sum-exp ``lse``), the standard flash-attention gradient in float32
+    PyTorch ops:
+
+        P  = exp(S - lse)             S = Q K^T / sqrt(D), causal
+        dV = P^T dO
+        dS = P * (dO V^T - rowsum(dO * O))
+        dQ = dS K / sqrt(D),   dK = dS^T Q / sqrt(D)
+
+    Each gradient is returned in its input's dtype."""
+    d, t = q.shape[-1], q.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    p = torch.exp(s - lse[..., None]).masked_fill(~causal, 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_launch(q, k, v):
+    """Refuse what the kernel does not take, before a pointer is passed."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: q lies on {q.device}; the kernel runs on CUDA")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"flash_attention: q is {q.dtype}; the kernel takes float32 or bfloat16")
+    if q.ndim != 4:
+        raise ValueError(f"flash_attention: expected [B, H, T, D], got {tuple(q.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(
+                f"flash_attention: {name} is {tuple(t.shape)} {t.dtype} on {t.device},"
+                f" q is {tuple(q.shape)} {q.dtype} on {q.device}"
+            )
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention: head dim {q.shape[-1]}; the kernel takes {KERNEL_HEAD_DIMS}"
+        )
+
+
+def flash_attention_launch(q, k, v):
+    """The kernel alone on checked CUDA tensors: returns (o [B, H, T, D] in
+    q's dtype, lse [B, H, T] float32)."""
+    B, H, T, D = q.shape
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    err = kernel("flash_attention")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        B * H, T, D, int(q.dtype == torch.bfloat16), 1.0 / D**0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
+    flash_attention.launches += 1
+    return o, lse
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal attention whose forward is the flash kernel (or, for CPU
+    tensors, its float32 plain form ``flash_attention_forward_reference``)
+    and whose backward is :func:`flash_attention_backward`, PyTorch ops on
+    the saved q, k, v, o and log-sum-exp. The Pallas kernel has no backward
+    either: the JAX package differentiates its jnp attention with XLA. The
+    backward never calls the plain forward version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_forward_reference(q, k, v)
+        else:
+            o, lse = flash_attention_launch(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        flash_attention.backward_calls += 1
+        return flash_attention_backward(*ctx.saved_tensors, do)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal softmax(QK^T / sqrt(D)) V over ``[B, H, T, D]``, any T, D in
+    {16, 32, 64}, float32 or bfloat16; differentiable.
+
+    Replaces ``jolineedle_tpu/ops/attention.py:101`` (Pallas, K and V whole
+    in VMEM, T a multiple of the block). On a CPU tensor it computes
+    :func:`flash_attention_reference`; on a CUDA tensor it launches
+    ``csrc/flash_attention.cu`` through :class:`FlashAttention` or raises.
+    """
+    flash_attention.calls += 1
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v)
+    _check_launch(q, k, v)
+    return FlashAttention.apply(q, k, v)
+
+
+causal_attention = flash_attention
+
+
+def reset_counts() -> None:
+    """Set the wrapper's ``calls``, ``launches`` and ``backward_calls`` to 0."""
+    flash_attention.calls = 0
+    flash_attention.launches = 0
+    flash_attention.backward_calls = 0
+
+
+reset_counts()

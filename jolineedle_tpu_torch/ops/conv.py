@@ -1,13 +1,16 @@
 """The YOLOX embedder's fused eval-mode conv blocks: Hopper kernels and their
 plain PyTorch versions.
 
-Two wrappers, each the counterpart of a Pallas TPU kernel of the JAX package
-and with its public layout (NHWC activations, HWIO weights, BN vectors):
+Three wrappers, each the counterpart of a Pallas TPU kernel of the JAX
+package and with its public layout (NHWC activations, HWIO weights, BN
+vectors):
 
 - ``dwblock_bn_silu`` replaces ``jolineedle_tpu/ops/conv.py:125``
   ``dwblock_bn_silu`` (kernel ``csrc/dwblock_bn_silu.cu``);
 - ``conv3x3_bn_silu`` replaces ``jolineedle_tpu/ops/conv.py:68``
-  ``conv3x3_bn_silu`` (kernel ``csrc/conv3x3_bn_silu.cu``).
+  ``conv3x3_bn_silu`` (kernel ``csrc/conv3x3_bn_silu.cu``);
+- ``conv3x3`` replaces ``scripts/smoke_pallas_conv.py:67`` ``pallas_conv3x3``
+  (kernel ``csrc/conv3x3.cu``, the same tiled body with no epilogue).
 
 On a CPU tensor a wrapper computes its plain version (``*_reference``, the
 same arithmetic in PyTorch ops); on a CUDA tensor it launches its kernel or
@@ -59,14 +62,24 @@ def dwblock_bn_silu_reference(
     return out.to(x.dtype)
 
 
-def conv3x3_bn_silu_reference(x, w, gamma, beta, mean, var, eps=1e-3):
-    """Plain version of :func:`conv3x3_bn_silu`: im2col over the nine taps,
-    one ``[HW, 9C] @ [9C, K]`` matmul, BN and SiLU, in float32."""
+def _conv3x3_f32(x, w):
+    """im2col over the nine taps and one ``[HW, 9C] @ [9C, K]`` matmul, in
+    float32."""
     C, K = x.shape[-1], w.shape[-1]
+    return torch.cat(_taps(x.float()), dim=-1) @ w.float().reshape(9 * C, K)
+
+
+def conv3x3_bn_silu_reference(x, w, gamma, beta, mean, var, eps=1e-3):
+    """Plain version of :func:`conv3x3_bn_silu`: the float32 conv, BN and
+    SiLU."""
     scale, bias = fold_bn(gamma, beta, mean, var, eps)
-    patches = torch.cat(_taps(x.float()), dim=-1)
-    out = patches @ w.float().reshape(9 * C, K)
-    return F.silu(out * scale + bias).to(x.dtype)
+    return F.silu(_conv3x3_f32(x, w) * scale + bias).to(x.dtype)
+
+
+def conv3x3_reference(x, w):
+    """Plain version of :func:`conv3x3`: the float32 conv, output in x's
+    dtype."""
+    return _conv3x3_f32(x, w).to(x.dtype)
 
 
 def _check_launch(name, x, tensors, shapes):
@@ -190,7 +203,7 @@ def conv3x3_bn_silu(x, w, gamma, beta, mean, var, eps=1e-3):
 
 
 def conv3x3_bn_silu_launch(x, operands):
-    """The conv3x3 kernel alone, on a checked CUDA ``x`` and the prepared
+    """The conv3x3_bn_silu kernel alone, on a checked CUDA ``x`` and the prepared
     float32 ``operands`` (w [9C, K], scale, bias) that
     :func:`conv3x3_bn_silu` folds from its arguments."""
     B, H, W, C = x.shape
@@ -206,9 +219,44 @@ def conv3x3_bn_silu_launch(x, operands):
     return out
 
 
+def conv3x3(x, w):
+    """Dense 3x3 stride-1 SAME conv, no bias and no epilogue.
+
+    x: [B, H, W, C]; w: [3, 3, C, K] (HWIO). Returns [B, H, W, K] in x's
+    dtype, accumulated in float32.
+
+    Replaces ``scripts/smoke_pallas_conv.py:67`` ``pallas_conv3x3`` (Pallas,
+    one padded image per program, im2col in VMEM). The kernel is the tiled
+    implicit GEMM of :func:`conv3x3_bn_silu` (``csrc/conv3x3_tile.cuh``)
+    with the identity epilogue: no padded copy and no im2col in HBM.
+    """
+    conv3x3.calls += 1
+    if x.device.type == "cpu":
+        return conv3x3_reference(x, w)
+    C, K = x.shape[-1], w.shape[-1]
+    _check_launch("conv3x3", x, dict(w=w), dict(w=(3, 3, C, K)))
+    return conv3x3_launch(x, w.float().reshape(9 * C, K).contiguous())
+
+
+def conv3x3_launch(x, wf):
+    """The conv3x3 kernel alone, on a checked CUDA ``x`` and the float32
+    filter ``wf`` [9C, K] that :func:`conv3x3` prepares."""
+    B, H, W, C = x.shape
+    K = wf.shape[1]
+    out = torch.empty((B, H, W, K), dtype=x.dtype, device=x.device)
+    err = kernel("conv3x3")(
+        x.data_ptr(), wf.data_ptr(), out.data_ptr(),
+        B, H, W, C, K, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _raise_on("conv3x3", err)
+    conv3x3.launches += 1
+    return out
+
+
 def reset_counts() -> None:
     """Set every wrapper's ``calls`` and ``launches`` to 0."""
-    for fn in (dwblock_bn_silu, conv3x3_bn_silu):
+    for fn in (dwblock_bn_silu, conv3x3_bn_silu, conv3x3):
         fn.calls = 0
         fn.launches = 0
 

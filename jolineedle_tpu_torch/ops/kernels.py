@@ -27,13 +27,17 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of each kernel library's entry point.
 SIGNATURES = {
     # x, dw[9,C], s1, b1, pw[C,K], s2, b2, out, B, H, W, C, K, is_bf16, stream
     "dwblock_bn_silu": [_P] * 8 + [_I] * 6 + [_P],
     # x, w[9C,K], scale, bias, out, B, H, W, C, K, is_bf16, stream
     "conv3x3_bn_silu": [_P] * 5 + [_I] * 6 + [_P],
+    # x, w[9C,K], out, B, H, W, C, K, is_bf16, stream
+    "conv3x3": [_P] * 3 + [_I] * 6 + [_P],
+    # q, k, v, o, lse[BH,T], BH, T, D, is_bf16, scale, stream
+    "flash_attention": [_P] * 5 + [_I] * 4 + [_F, _P],
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}

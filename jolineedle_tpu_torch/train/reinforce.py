@@ -1,0 +1,419 @@
+"""REINFORCE trainer: sampled glimpse rollouts and a policy-gradient step.
+
+The counterpart of ``jolineedle_tpu/train/reinforce.py``. The JAX train step
+differentiates through its whole ``lax.scan`` rollout (KV-cache decode and
+embedder included). Here the rollout is the no-grad host loop of
+``train/rollout.py`` (its YOLOX blocks on the fused eval kernels), and
+:func:`reinforce_loss` recomputes the log-probabilities of the sampled
+actions with one teacher-forced forward of the decoder (prev-action input
+``[0, a_0 .. a_{T-2}]``, the positions and patches the rollout saw) in eval
+mode: no dropout and running-statistics BatchNorm, as ``decode_step`` runs
+(``gpt.py:385``). Decode and forward are the same function
+(``gpt.py:372-376``), so the gradient is the JAX one. The forward's attention
+is the flash kernel on the card; its convs are PyTorch convs that autograd
+differentiates.
+
+A train step (``reinforce.py:126-233``): rollout; the action loss
+``-logprob * advantage`` and the entropy term over the live steps, with the
+advantages normalised by the previous accumulation window's return
+mean and Bessel-corrected std; then, with detection on, the SimOTA loss of
+the train-mode detector on env-sampled, photometrically augmented patches;
+backward; the optimizer (accumulation, clip 1.0, two AdamW groups).
+"""
+
+from __future__ import annotations
+
+import copy
+from collections import defaultdict
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..env.batched_env import NeedleEnv
+from ..env.oracle import gather_patches
+from ..ops.augment import detection_augment
+from ..ops.nms import postprocess, sigmoid_np
+from ..ops.simota import yolox_losses
+from ..utils.geometry import merge_boxes_batched
+from ..utils.metrics import compute_detection_metrics, patch_bboxes2full_image
+from .batching import Prefetcher
+from .rollout import compute_rollout_metrics, rollout
+from .trainer import Trainer
+
+
+def fixed_training_shape(dataset, patch_size: int) -> Tuple[int, int]:
+    """Static (H, W) that fits every transformed training image, read from
+    the image headers only (``reinforce.py:66-93``)."""
+    from PIL import Image
+
+    max_h = max_w = patch_size
+    for path in dataset.image_paths:
+        with Image.open(path) as im:
+            w, h = im.size
+        m = dataset.minimum_image_size
+        if m and (w < m or h < m):
+            ratio = w / h
+            if w < m:
+                w = m
+                h = int(w / ratio)
+            if h < m:
+                h = m
+                w = int(h * ratio)
+        max_h, max_w = max(max_h, h), max(max_w, w)
+    if dataset.rotations:
+        max_h = max_w = max(max_h, max_w)
+    round_up = lambda v: -(-v // patch_size) * patch_size
+    return round_up(max_h), round_up(max_w)
+
+
+def reinforce_loss(
+    model,
+    env: NeedleEnv,
+    ro: Dict[str, torch.Tensor],
+    return_mean: float,
+    return_std: float,
+    entropy_weight: float,
+    reward_norm: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The REINFORCE loss of a sampled rollout ``ro`` (from :func:`rollout`
+    with ``collect=("actions",)``), differentiable in the model's weights.
+
+    The log-probabilities and entropies of the taken actions come from one
+    teacher-forced forward in eval mode over the patches at the rollout's
+    positions; ``ro["returns"]`` and ``ro["logit_masks"]`` are data.
+    Returns (loss, metrics) as ``reinforce.py:168-187`` computes them."""
+    actions = ro["actions"]
+    B, T = actions.shape
+    positions = ro["positions"][:, :T]
+    patches = env.gather_patches_at(positions)
+    prev_actions = torch.cat([torch.zeros_like(actions[:, :1]), actions[:, :-1]], dim=1)
+    classes = torch.zeros(B, dtype=torch.long, device=actions.device)
+    logits, _ = model(patches, prev_actions, classes, positions, train=False)
+    logp_all = F.log_softmax(logits.float(), dim=-1)
+    logprobs = logp_all.gather(-1, actions[..., None])[..., 0]
+    entropies = -(logp_all.exp() * logp_all).sum(-1)
+
+    masks = ro["logit_masks"]
+    returns = ro["returns"]
+    advantages = (returns - return_mean) / (return_std + 1e-8) if reward_norm else returns
+    msum = masks.sum().clamp_min(1.0)
+    action_loss = -(logprobs * advantages * masks).sum() / msum
+    entropy_loss = -(entropies * masks).sum() / msum
+    loss = action_loss + entropy_weight * entropy_loss
+    metrics = {
+        "action_loss": action_loss.detach(),
+        "entropy_loss": entropy_loss.detach(),
+        "returns": (ro["rewards"] * masks).sum(dim=1).mean(),
+        "episode_length": masks.sum(dim=1).mean(),
+        # window stats for the cross-batch return normalisation
+        "ret_sum": (returns * masks).sum(),
+        "ret_sumsq": (returns**2 * masks).sum(),
+        "ret_count": masks.sum(),
+    }
+    return loss, metrics
+
+
+class ReinforceTrainer(Trainer):
+    best_metric_name = "prop_patches_found"
+
+    def __init__(self, config, model, logger, train_dataset, test_dataset, device=None):
+        super().__init__(config, model, logger, train_dataset, test_dataset, device)
+        self.max_ep_len = config.max_seq_len
+        self.entropy_weight = config.entropy_weight
+        self.stop_enabled = config.stop_enabled
+        # Return-normalisation window (reference: src/reinforce.py:69-71).
+        self.last_return_mean = 0.0
+        self.last_return_std = 1.0
+        self._window_stats = []  # (sum, sumsq, count) device scalars
+        # Draws the rollouts' reset positions and actions, the detection
+        # negatives and the augmentation, in that order, every step.
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        #: Set to a list to record (phase, CUDA event) marks in train_step.
+        self.phase_events = None
+
+    def train_state(self) -> dict:
+        state = super().train_state()
+        state.update(
+            return_window=[self.last_return_mean, self.last_return_std],
+            window_stats=[[float(v) for v in s] for s in self._window_stats],
+            generator=self.generator.get_state(),
+        )
+        return state
+
+    def load_train_state(self, state: dict) -> None:
+        super().load_train_state(state)
+        self.last_return_mean, self.last_return_std = state["return_window"]
+        self._window_stats = [tuple(s) for s in state["window_stats"]]
+        self.generator.set_state(state["generator"])
+
+    # --- return-normalisation window (reference: reinforce.py:92-106) ---------
+    def _update_return_stats(self):
+        if not self._window_stats:
+            self.last_return_mean, self.last_return_std = 0.0, 1.0
+            return
+        total = float(sum(float(s[0]) for s in self._window_stats))
+        totalsq = float(sum(float(s[1]) for s in self._window_stats))
+        count = float(sum(float(s[2]) for s in self._window_stats))
+        if count == 0:
+            mean, std = 0.0, 1.0
+        elif count == 1:
+            mean, std = total, 1.0
+        else:
+            mean = total / count
+            var = max(totalsq - count * mean * mean, 0.0) / (count - 1)
+            std = var**0.5
+        self.last_return_mean, self.last_return_std = mean, std
+        self._window_stats = []
+
+    # --- host batch assembly ----------------------------------------------------
+    @property
+    def fixed_shape(self):
+        if not hasattr(self, "_fixed_shape"):
+            self._fixed_shape = fixed_training_shape(self.train_dataset, self.config.patch_size)
+        return self._fixed_shape
+
+    def _build_env_batch(self, indices, seed: int = 0) -> Dict[str, np.ndarray]:
+        """uint8 ``[B, Hf, Wf, C]`` images padded to the static training
+        shape and ``[B, max_boxes, 4]`` padded boxes (``reinforce.py:296-350``,
+        the streaming path)."""
+        cfg = self.config
+        hf, wf = self.fixed_shape
+        rng = np.random.default_rng(seed)
+        images, boxes = [], []
+        for idx in indices:
+            item = self.train_dataset.__getitem__(int(idx), rng)
+            img = item["image"]
+            if img.dtype != np.uint8:
+                img = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+            h, w = img.shape[:2]
+            images.append(np.pad(img, ((0, hf - h), (0, wf - w), (0, 0))))
+            b = np.asarray(item["bboxes"], np.float32).reshape(-1, 4)[: cfg.max_boxes]
+            boxes.append(np.pad(b, ((0, cfg.max_boxes - len(b)), (0, 0))))
+        return {"image": np.stack(images), "bboxes": np.stack(boxes)}
+
+    # --- the train step ---------------------------------------------------------
+    def _mark(self, phase: str) -> None:
+        if self.phase_events is not None:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.phase_events.append((phase, event))
+
+    def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """One REINFORCE iteration on a host batch; returns its metrics as
+        device scalars (no host synchronisation)."""
+        cfg = self.config
+        self._mark("start")
+        images = torch.from_numpy(batch["image"]).to(self.device)
+        env = NeedleEnv(images, batch["bboxes"], cfg.patch_size, self.max_ep_len, 1,
+                        self.stop_enabled, stop_bonus_scale=getattr(cfg, "stop_bonus_scale", 1.0),
+                        device=self.device)
+        ro = rollout(self.model, env, sample=True, generator=self.generator,
+                     collect=("actions",))
+        self._mark("rollout")
+        loss, metrics = reinforce_loss(self.model, env, ro, self.last_return_mean,
+                                       self.last_return_std, self.entropy_weight,
+                                       cfg.reward_norm)
+        # Backward per loss term: the same summed gradient, and the rollout
+        # recompute's activations are freed before the detector runs.
+        loss.backward()
+        self._mark("loss")
+        if cfg.detection_enabled:
+            patches, targets, pvalid = env.get_detection_batch(
+                self.generator, cfg.max_det_patches, sample_neg=1)
+            det = detection_augment(self.generator, patches)
+            B, K = det.shape[:2]
+            head, _ = self.model.yolox_outputs(det.reshape((B * K,) + det.shape[2:]), train=True)
+            ylo = yolox_losses(head, targets.reshape((B * K,) + targets.shape[2:]),
+                               pvalid.reshape(-1))
+            ylo["total_loss"].backward()
+            loss = loss.detach() + ylo["total_loss"].detach()
+            for name, value in ylo.items():
+                metrics[f"yolo_{name}"] = value.detach()
+            metrics["yolo_loss"] = ylo["total_loss"].detach()
+            self._mark("detection")
+        metrics["loss"] = loss.detach()
+        self.optimizer.step()
+        self.step += 1
+        self._mark("optimizer")
+        return metrics
+
+    # --- train loop (reference: src/reinforce.py:267-362) -----------------------
+    def run(self):
+        cfg = self.config
+        order_rng = np.random.default_rng(cfg.seed)
+        if self.logger is not None:
+            self.logger.log_start(self.model)
+        index_pool = []
+        batch_counter = [0]
+
+        def pick_work():
+            nonlocal index_pool
+            while len(index_pool) < cfg.batch_size:
+                index_pool += order_rng.permutation(len(self.train_dataset)).tolist()
+            indices, index_pool = index_pool[: cfg.batch_size], index_pool[cfg.batch_size :]
+            batch_counter[0] += 1
+            return indices, cfg.seed + 1 + batch_counter[0]
+
+        prefetcher = Prefetcher(lambda work: self._build_env_batch(*work), n_prefetch=2,
+                                num_workers=cfg.num_workers, pick_work=pick_work)
+        try:
+            for it in range(1, cfg.max_iters + 1):
+                self.maybe_profile(it)
+                metrics = self.train_step(next(prefetcher))
+                self.iter_num = it
+                self.last_train_metrics = metrics
+                if it % self.PRINT_EVERY == 0:
+                    print(f"iter {it}: loss {float(metrics['loss']):.4f}", flush=True)
+                if cfg.reward_norm:
+                    self._window_stats.append(
+                        (metrics["ret_sum"], metrics["ret_sumsq"], metrics["ret_count"]))
+                    if it % cfg.gradient_accumulation == 0:
+                        self._update_return_stats()
+                if it % cfg.test_every == 0:
+                    self.test()
+        finally:
+            prefetcher.close()
+            self.maybe_profile(-1)
+
+        self.prepare_validation()
+        self.test()
+
+    # --- evaluation --------------------------------------------------------------
+    def compute_rollout_metrics(self, ro: Dict[str, np.ndarray]) -> Dict[str, float]:
+        return compute_rollout_metrics(ro, self.config, self.last_return_mean,
+                                       self.last_return_std)
+
+    def _batched_detection_batches(self, items):
+        """Per image: every positive patch (``get_detection_batch`` with no
+        negatives), grouped by image shape and chunked to ``EVAL_CHUNK``
+        images per env. Returns per item (patches [K, P, P, C] float in
+        [0, 1], targets [K, N, 6], valid [K]) as numpy (``reinforce.py:
+        585-639``)."""
+        cfg = self.config
+        groups = defaultdict(list)
+        for i, item in enumerate(items):
+            groups[item["image"].shape].append(i)
+        results = [None] * len(items)
+        for ids in groups.values():
+            for start in range(0, len(ids), self.EVAL_CHUNK):
+                chunk = ids[start : start + self.EVAL_CHUNK]
+                images = np.stack([items[i]["image"] for i in chunk])
+                boxes = np.zeros((len(chunk), cfg.max_boxes, 4), np.float32)
+                for j, i in enumerate(chunk):
+                    b = np.asarray(items[i]["bboxes"], np.float32).reshape(-1, 4)
+                    boxes[j, : min(len(b), cfg.max_boxes)] = b[: cfg.max_boxes]
+                env = NeedleEnv(torch.from_numpy(images).to(self.device), boxes,
+                                cfg.patch_size, self.max_ep_len, 1, self.stop_enabled,
+                                device=self.device)
+                gen = torch.Generator(device=self.device).manual_seed(0)
+                patches, targets, valid = (
+                    t.cpu().numpy()
+                    for t in env.get_detection_batch(gen, cfg.max_det_patches, sample_neg=0))
+                for j, i in enumerate(chunk):
+                    results[i] = (patches[j], targets[j], valid[j])
+        return results
+
+    def _traj_det_request(self, item: dict, ro: dict):
+        """The visited patches of one eval image, padded to max_ep_len + 1."""
+        cfg = self.config
+        positions = ro["positions"][0]
+        n_valid = int(ro["masks"][0].sum())
+        patches = gather_patches(item["image"], positions[:n_valid], cfg.patch_size)
+        T_pad = self.max_ep_len + 1
+        padded = np.zeros((T_pad,) + patches.shape[1:], patches.dtype)
+        padded[:n_valid] = patches
+        return {"patches": padded, "valid": np.arange(T_pad) < n_valid}, patches
+
+    def eval_on_sample(self, item: dict, rollout: dict, dets: Optional[dict] = None):
+        """Rollout and detection metrics of one eval image (reference:
+        src/reinforce.py:417-493; ``reinforce.py:659-794`` without the
+        trajectory plot, which waits for the plotting port)."""
+        cfg = self.config
+        boxes = np.asarray(item["bboxes"], np.float32).reshape(-1, 4)
+        ro = rollout
+        metrics = self.compute_rollout_metrics(ro)
+        positions = ro["positions"][0]
+        n_valid = int(ro["masks"][0].sum())
+        full_img_targets = [np.concatenate(
+            [np.zeros((len(boxes), 1), np.float64), boxes.astype(np.float64)], axis=1)]
+        if not cfg.detection_enabled:
+            return metrics
+        traj_req, _ = self._traj_det_request(item, ro)
+        traj_det = dets["traj"] if dets is not None else self._batched_patch_detections([traj_req])[0]
+        head = traj_det["head"]
+        traj_preds = postprocess(
+            head["boxes"], sigmoid_np(head["obj_logits"]), sigmoid_np(head["cls_logits"]),
+            conf_threshold=self.model.detector_conf_threshold, patch_size=cfg.patch_size,
+        )[:n_valid]
+        offsets = positions[:n_valid][:, [1, 0]] * cfg.patch_size
+        full_img_preds = patch_bboxes2full_image([traj_preds], offsets[None],
+                                                 np.ones((1, n_valid), bool))
+        if cfg.merge_bboxes:
+            full_img_preds = merge_boxes_batched(full_img_preds, target=False)
+            full_img_targets = list(merge_boxes_batched(full_img_targets, target=True))
+        metrics.update(compute_detection_metrics(full_img_preds, full_img_targets))
+
+        # Detector metrics on every positive patch (reference:
+        # src/reinforce.py:469-479).
+        if dets is not None:
+            det_patches, det_targets, det_valid = dets["batch"]
+            det_result = dets["batch_det"]
+        else:
+            det_patches, det_targets, det_valid = self._batched_detection_batches([item])[0]
+            det_result = None
+        k_valid = det_valid.astype(bool)
+        if k_valid.any():
+            if det_result is None:
+                det_result = self._batched_patch_detections(
+                    [{"patches": det_patches, "targets": det_targets, "valid": k_valid}])[0]
+            det_head = det_result["head"]
+            det_preds = postprocess(
+                det_head["boxes"], sigmoid_np(det_head["obj_logits"]),
+                sigmoid_np(det_head["cls_logits"]),
+                conf_threshold=self.model.detector_conf_threshold, patch_size=cfg.patch_size,
+            )
+            det_preds = [p for p, v in zip(det_preds, k_valid) if v]
+            det_gts = []
+            for rows, v in zip(det_targets, k_valid):
+                if v:
+                    keep = rows[rows[:, 5] == 1]
+                    det_gts.append(np.concatenate([keep[:, :1], keep[:, 1:5]], axis=1))
+            for name, value in compute_detection_metrics(det_preds, det_gts).items():
+                metrics["yolo_" + name] = value
+            for name, value in det_result["losses"].items():
+                metrics["yolo_" + name] = float(value)
+        return metrics
+
+    def test(self, sample_actions: bool = False):
+        """Test cycle (reference: src/reinforce.py:364-415): batched eval
+        rollouts, batched detections, per-image metrics, best-checkpoint
+        tracking, checkpoints and ``metrics.json``. The model and failure
+        image panels wait for the plotting port."""
+        dataset = copy.copy(self.test_dataset)
+        dataset.translations = dataset.rotations = False
+        items = [dataset.__getitem__(int(env_id), np.random.default_rng(loop_id))
+                 for loop_id, env_id in enumerate(self.test_env_ids)]
+        rollouts = self._batched_eval_rollouts(
+            [{"image": it["image"], "boxes": it["bboxes"]} for it in items], sample_actions)
+        dets_list = [None] * len(items)
+        if self.config.detection_enabled:
+            traj_dets = self._batched_patch_detections(
+                [self._traj_det_request(it, ro)[0] for it, ro in zip(items, rollouts)])
+            batches = self._batched_detection_batches(items)
+            batch_dets = self._batched_patch_detections(
+                [{"patches": p, "targets": t, "valid": v} for p, t, v in batches])
+            dets_list = [{"traj": td, "batch": b, "batch_det": bd}
+                         for td, b, bd in zip(traj_dets, batches, batch_dets)]
+        all_metrics = defaultdict(list)
+        for item, ro, dets in zip(items, rollouts, dets_list):
+            for name, value in self.eval_on_sample(item, ro, dets).items():
+                all_metrics[name].append(value)
+
+        self.last_test_metrics = all_metrics
+        self.record_best_metric(all_metrics)
+        if self.logger is not None:
+            self.logger.log_to_visdom(all_metrics, {}, "test")
+        self.save_state()
+        self.save_metrics()

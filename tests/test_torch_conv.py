@@ -1,6 +1,6 @@
-"""The port's fused conv blocks (jolineedle_tpu_torch/ops/conv.py) against the
-JAX package's Pallas kernels, and the CUDA kernels against their plain
-versions.
+"""The port's conv kernels (jolineedle_tpu_torch/ops/conv.py) against the JAX
+package's Pallas kernels (the two fused blocks, and the smoke script's plain
+3x3 conv), and the CUDA kernels against their plain versions.
 
 On the CPU a wrapper computes its plain version; the JAX side runs the
 Pallas kernels in interpret mode, as tests/test_pallas_conv.py does. JAX is
@@ -10,8 +10,10 @@ also run on a machine that has a GPU and no JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_conv.py
 """
 
+import importlib.util
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -85,13 +87,44 @@ def test_conv3x3_matches_jax(shape):
     np.testing.assert_allclose(ref.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def _smoke_pallas_conv():
+    """scripts/smoke_pallas_conv.py, loaded by path (scripts/ is no package)."""
+    path = Path(__file__).resolve().parents[1] / "scripts" / "smoke_pallas_conv.py"
+    spec = importlib.util.spec_from_file_location("smoke_pallas_conv", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 12, 8, 16), (1, 14, 14, 16, 32)])
+def test_plain_conv3x3_matches_smoke_pallas_conv(shape):
+    """The plain version of the port's ``conv3x3`` against the smoke
+    script's Pallas ``pallas_conv3x3`` (interpret mode on the CPU)."""
+    import jax.numpy as jnp
+
+    B, H, W, C, K = shape
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, C, K)) * 0.1).astype(np.float32)
+    want = np.asarray(_smoke_pallas_conv().pallas_conv3x3(jnp.asarray(x), jnp.asarray(w)))
+    calls = tconv.conv3x3.calls
+    got = tconv.conv3x3(torch.from_numpy(x), torch.from_numpy(w))
+    assert tconv.conv3x3.calls == calls + 1
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    ref = tconv.conv3x3_reference(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose(ref.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 def test_cpu_path_does_not_launch():
     """A CPU tensor goes to the plain version and never counts a launch."""
     tconv.reset_counts()
     tconv.dwblock_bn_silu(*[torch.from_numpy(a) for a in _dw_inputs(DW_SHAPES[0], 2)])
-    tconv.conv3x3_bn_silu(*[torch.from_numpy(a) for a in _conv_inputs(CONV_SHAPES[0], 2)])
-    assert tconv.dwblock_bn_silu.calls == tconv.conv3x3_bn_silu.calls == 1
-    assert tconv.dwblock_bn_silu.launches == tconv.conv3x3_bn_silu.launches == 0
+    conv_args = [torch.from_numpy(a) for a in _conv_inputs(CONV_SHAPES[0], 2)]
+    tconv.conv3x3_bn_silu(*conv_args)
+    tconv.conv3x3(*conv_args[:2])
+    assert tconv.dwblock_bn_silu.calls == tconv.conv3x3_bn_silu.calls == tconv.conv3x3.calls == 1
+    assert (tconv.dwblock_bn_silu.launches == tconv.conv3x3_bn_silu.launches
+            == tconv.conv3x3.launches == 0)
 
 
 def test_non_cpu_tensor_never_falls_back():
@@ -100,6 +133,8 @@ def test_non_cpu_tensor_never_falls_back():
     args = [torch.from_numpy(a).to("meta") for a in _conv_inputs(CONV_SHAPES[0], 3)]
     with pytest.raises(ValueError, match="runs on CUDA"):
         tconv.conv3x3_bn_silu(*args)
+    with pytest.raises(ValueError, match="runs on CUDA"):
+        tconv.conv3x3(*args[:2])
 
 
 def test_module_imports_without_nvcc_or_triton():
@@ -108,12 +143,14 @@ def test_module_imports_without_nvcc_or_triton():
         " shutil.which = lambda *a, **k: None;"
         " import jolineedle_tpu_torch.ops.conv as c;"
         " assert 'triton' not in sys.modules or sys.modules['triton'] is None;"
-        " print(c.dwblock_bn_silu.launches, c.conv3x3_bn_silu.launches)"
+        " import jolineedle_tpu_torch.ops.attention as a;"
+        " print(c.dwblock_bn_silu.launches, c.conv3x3_bn_silu.launches,"
+        " c.conv3x3.launches, a.flash_attention.launches)"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, check=True
     )
-    assert out.stdout.split() == ["0", "0"]
+    assert out.stdout.split() == ["0", "0", "0", "0"]
 
 
 @pytest.fixture
@@ -160,5 +197,26 @@ def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert tconv.conv3x3_bn_silu.launches == launches + 1
     want = tconv.conv3x3_bn_silu_reference(x.float(), *args[1:])
+    atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
+
+
+# The smoke script's default (B=8, 56x56, 16 -> 32), the nano stem, a
+# ragged one and a K that takes two 64-wide slices.
+GPU_PLAIN_CONV = [(8, 56, 56, 16, 32), (2, 224, 224, 12, 16), (2, 33, 17, 12, 16),
+                  (1, 10, 10, 40, 130)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GPU_PLAIN_CONV)
+def test_plain_conv3x3_kernel_matches_plain(cuda, shape, dtype):
+    x, w = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(shape, 6)[:2])
+    x = x.to(dtype)
+    launches = tconv.conv3x3.launches
+    got = tconv.conv3x3(x, w)
+    torch.cuda.synchronize()
+    assert tconv.conv3x3.launches == launches + 1
+    want = tconv.conv3x3_reference(x.float(), w)
     atol, rtol = TOLS[dtype]
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)

@@ -163,7 +163,22 @@ def test_embed_flattens_nhwc(models):
 
 
 def test_train_mode_raises(models):
+    """Train mode is ported; what still raises is dropout with no generator
+    to draw it from (the port takes no hidden global random state)."""
     _, _, tmodel = models
     x = {k: _torch(v) for k, v in _inputs(6).items()}
-    with pytest.raises(NotImplementedError):
-        tmodel(x["patches"], x["actions"], x["classes"], x["positions"], train=True)
+    args = (x["patches"], x["actions"], x["classes"], x["positions"])
+    tmodel.dropout = 0.1
+    try:
+        with pytest.raises(ValueError, match="needs a torch.Generator"):
+            tmodel(*args, train=True)
+        with torch.no_grad():
+            gen = torch.Generator().manual_seed(0)
+            a = tmodel(*args, train=True, generator=gen)[0]
+            b = tmodel(*args, train=True, generator=torch.Generator().manual_seed(0))[0]
+            c = tmodel(*args, train=True, generator=gen)[0]
+            d = tmodel(*args)[0]
+    finally:
+        tmodel.dropout = 0.0
+    torch.testing.assert_close(a, b, atol=0, rtol=0)  # the generator alone decides
+    assert not torch.equal(a, c) and not torch.equal(a, d)

@@ -6,11 +6,15 @@ same inputs, made from a numpy seed, on both sides and must give identical
 results: the copies may not drift from the reference.
 """
 
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 import jolineedle_tpu.config as jconfig
 import jolineedle_tpu.data.dataset as jdataset
+import jolineedle_tpu.data.toy as jtoy
 import jolineedle_tpu.env.oracle as joracle
 import jolineedle_tpu.env.parsing as jparsing
 import jolineedle_tpu.ops.nms as jnms
@@ -18,6 +22,7 @@ import jolineedle_tpu.utils.geometry as jgeometry
 import jolineedle_tpu.utils.metrics as jmetrics
 import jolineedle_tpu_torch.config as tconfig
 import jolineedle_tpu_torch.data.dataset as tdataset
+import jolineedle_tpu_torch.data.toy as ttoy
 import jolineedle_tpu_torch.env.oracle as toracle
 import jolineedle_tpu_torch.env.parsing as tparsing
 import jolineedle_tpu_torch.ops.nms as tnms
@@ -117,8 +122,68 @@ def _images(rng):
     return out
 
 
+def _files(directory):
+    return {str(p.relative_to(directory)): p.read_bytes()
+            for p in sorted(Path(directory).rglob("*")) if p.is_file()}
+
+
+def _toy(rng):
+    """The same seed writes the same files (images, boxes, lists)."""
+    out = []
+    for toy in (jtoy, ttoy):
+        with tempfile.TemporaryDirectory() as tmp:
+            toy.generate_toy_dataset(Path(tmp) / "a", n_train=2, n_test=1, image_size=(128, 160),
+                                     seed=3, box_size=(12, 40))
+            toy.generate_toy_dataset(Path(tmp) / "b", n_train=1, n_test=1, image_size=(256, 200),
+                                     seed=4, runway=True, context=True)
+            out.append((_files(Path(tmp) / "a"), _files(Path(tmp) / "b")))
+    return out
+
+
+def _dataset(rng):
+    """Dataset items (resize to a minimum size, pad, rotate, translate,
+    class pick) from the same list files with the same per-item seeds."""
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        jtoy.generate_toy_dataset(Path(tmp), n_train=3, n_test=2, image_size=(128, 176),
+                                  max_boxes=3, seed=5, box_size=(12, 40))
+        for data in (jdataset, tdataset):
+            train, test = data.build_datasets(
+                Path(tmp), patch_size=P, max_ep_len=4, min_keypoints=1, max_keypoints=2,
+                rotations=True, translations=True, seed=1, minimum_image_size=150)
+            items = [train.__getitem__(i, np.random.default_rng(i)) for i in range(len(train))]
+            items += [test.__getitem__(i, np.random.default_rng(9)) for i in range(len(test))]
+            paths = [Path(p).name for p in train.image_paths + test.image_paths]
+            out.append((paths, items))
+    return out
+
+
+def _visualizer(rng):
+    """Metric routing, the dashboard state and its pickle round trip."""
+    from jolineedle_tpu.observe.logger import Logger as JLogger
+    from jolineedle_tpu.observe.visualizer import VisdomPlotter as JPlotter
+    from jolineedle_tpu_torch.observe.logger import Logger as TLogger
+    from jolineedle_tpu_torch.observe.visualizer import VisdomPlotter as TPlotter
+
+    names = ["yolo_map", "map", "prop_patches_found", "episode_length", "stop_used", "loss",
+             "action_loss", "label_x", "returns"]
+    values = rng.normal(size=(3, len(names)))
+    out = []
+    for logger, plotter in ((JLogger, JPlotter), (TLogger, TPlotter)):
+        viz = plotter("env", offline=True)
+        for row in values:
+            for name, v in zip(names, row):
+                viz.add_scalar(logger.route(name), name, v)
+        viz.add_table("t", {"a": 1, "b": "x"})
+        with tempfile.TemporaryDirectory() as tmp:
+            viz.save(tmp)
+            back = plotter.load(Path(tmp) / "visdom.pkl")
+        out.append(([logger.route(n) for n in names], dict(back.lines), back.texts))
+    return out
+
+
 CASES = {"parsing": _parsing, "geometry": _geometry, "metrics": _metrics, "nms": _nms,
-         "images": _images}
+         "images": _images, "toy": _toy, "dataset": _dataset, "visualizer": _visualizer}
 
 
 def _assert_same(got, want, path="out"):
@@ -140,6 +205,19 @@ def _assert_same(got, want, path="out"):
 def test_host_copy_matches_jax(module):
     want, got = CASES[module](np.random.default_rng(7))
     _assert_same(got, want)
+
+
+def test_toy_runway_takes_a_short_side(tmp_path):
+    """The JAX generator raises on a runway image side below 193 (its
+    length draw starts at 192); the port's draws a shorter runway."""
+    with pytest.raises(ValueError):
+        jtoy.generate_toy_dataset(tmp_path / "j", n_train=1, n_test=0, image_size=(150, 150),
+                                  seed=0, runway=True)
+    ttoy.generate_toy_dataset(tmp_path / "t", n_train=2, n_test=1, image_size=(150, 150),
+                              seed=0, runway=True)
+    for line in (tmp_path / "t" / "train.txt").read_text().splitlines():
+        box = np.loadtxt(tmp_path / "t" / line.split()[1])
+        assert box[3] < 150 and box[4] < 150 and max(box[3] - box[1], box[4] - box[2]) >= 16
 
 
 def test_config_flags_and_defaults_match_jax(tmp_path):

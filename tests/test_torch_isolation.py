@@ -1,11 +1,13 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-entry points refuse to continue on the CPU when the card is asked for and
-absent, and its weight bridge carries every leaf both ways.
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+does ``chip_smoke.py``, which drives it on the card), its entry points refuse
+to continue on the CPU when the card is asked for and absent, and its weight
+bridge carries every leaf both ways.
 """
 
 import pkgutil
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,10 +24,14 @@ from jolineedle_tpu_torch import config as tconfig
 from jolineedle_tpu_torch.env.actions import get_actions_info as t_actions_info
 from jolineedle_tpu_torch.env.batched_env import NeedleEnv
 from jolineedle_tpu_torch.infer import get_infer_args, infer
+from jolineedle_tpu_torch.main import main as train_main
 from jolineedle_tpu_torch.models.bridge import flax_to_torch, torch_to_flax
 from jolineedle_tpu_torch.models.gpt import GPT
 from jolineedle_tpu_torch.models.yolox import NeedleYOLOX
+from jolineedle_tpu_torch.train.reinforce import ReinforceTrainer
 from jolineedle_tpu_torch.train.rollout import eval_rollout
+
+ROOT = Path(__file__).resolve().parents[1]
 
 P = 64
 CLI = [
@@ -44,15 +50,23 @@ PORT_MODULES = sorted(
 
 
 def test_every_module_imports_without_jax():
-    """With ``jax`` and ``jolineedle_tpu`` blocked, every port module imports
-    and neither package (nor a submodule of either) is loaded after."""
-    assert "jolineedle_tpu_torch.ops.conv" in PORT_MODULES
+    """With ``jax`` and ``jolineedle_tpu`` blocked, every port module (the
+    train CLI and the smoke-conv script among them) and ``chip_smoke.py``
+    import, and neither package (nor a submodule of either) is loaded
+    after."""
+    for name in ("ops.conv", "ops.attention", "main", "scripts.smoke_conv",
+                 "train.reinforce"):
+        assert f"jolineedle_tpu_torch.{name}" in PORT_MODULES
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'jolineedle_tpu'):\n"
         "    sys.modules[name] = None\n"
         f"for name in {PORT_MODULES!r}:\n"
         "    importlib.import_module(name)\n"
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
+        "smoke = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(smoke)\n"
+        "smoke.import_port()\n"
         "blocked = ('jax', 'jaxlib', 'flax', 'jolineedle_tpu')\n"
         "loaded = [n for n, m in sys.modules.items() if m is not None\n"
         "          and n.split('.')[0] in blocked]\n"
@@ -73,6 +87,10 @@ def _configs():
     return tconfig.args_to_config(tconfig.get_args(CLI))
 
 
+def _with_work_dir(path):
+    return [str(path) if f == "/nonexistent" else f for f in CLI]
+
+
 @pytest.mark.parametrize("device", [None, "cuda"])
 def test_entry_points_refuse_the_cpu(no_card, device, tmp_path):
     train_config, model_config = _configs()
@@ -85,6 +103,8 @@ def test_entry_points_refuse_the_cpu(no_card, device, tmp_path):
         lambda: NeedleEnv(images, boxes, P, 4, device=device),
         lambda: eval_rollout(None, images, boxes, train_config, device=device),
         lambda: infer(get_infer_args(["--model-dir", str(tmp_path)]), device=device),
+        lambda: train_main(tconfig.get_args(_with_work_dir(tmp_path)), device=device),
+        lambda: ReinforceTrainer(train_config, None, None, None, None, device=device),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="runs on a CUDA device"):

@@ -158,6 +158,19 @@ def test_upstream_state_dict_loads_unchanged():
 
 
 def test_train_mode_raises():
+    """Train mode no longer raises: it takes PyTorch convs with batch
+    statistics (never the eval-only kernel wrappers) and moves the running
+    statistics; only an explicit ``autograd``/``train`` changes the route."""
     port = NeedleYOLOX("yolox-nano", device="cpu")
-    with pytest.raises(NotImplementedError):
-        port(torch.zeros(1, 3, 32, 32), train=True)
+    x = torch.from_numpy(_patches(4, n=2)).permute(0, 3, 1, 2)
+    before = port.backbone.backbone.stem.conv.bn.running_var.clone()
+    calls = (tconv.dwblock_bn_silu.calls, tconv.conv3x3_bn_silu.calls)
+    head, _ = port(x, train=True)
+    assert (tconv.dwblock_bn_silu.calls, tconv.conv3x3_bn_silu.calls) == calls
+    assert not torch.equal(port.backbone.backbone.stem.conv.bn.running_var, before)
+    assert head["obj_logits"].requires_grad
+    port(x, autograd=True)
+    assert (tconv.dwblock_bn_silu.calls, tconv.conv3x3_bn_silu.calls) == calls
+    with torch.no_grad():
+        port(x)
+    assert tconv.dwblock_bn_silu.calls == calls[0] + 24
