@@ -48,9 +48,14 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
 
 Phase 3 also holds the flash-attention kernel against its plain version
 at the decoder's shape [16, 3, 21, 16] and a ragged multi-tile [2, 4, 200,
-64], output and gradients, and the plain 3x3 conv kernel at the smoke
-script's default and at the nano stem; phase 4 also compares the REINFORCE
-loss and its gradients on the card with the CPU.
+64], output and gradients, the plain 3x3 conv kernel at the smoke script's
+default and at the nano stem, and ``conv3x3_bn_silu`` at every dense
+stride-1 3x3 shape of a yolox-s detector at 448 px (rows beside the path,
+outside the ``kernels`` line's totals); phase 4 also compares the REINFORCE
+loss and its gradients on the card with the CPU. The dense 3x3 kernels take
+their filter as the wrappers prepare it (``conv3x3_filter``: in x's dtype,
+so rounded to bf16 in bf16); their plain versions run on the caller's
+float32 filter, so the bf16 tolerance also holds that rounding.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Every number printed carries the card's
@@ -81,8 +86,12 @@ N_PATCHES = 32  # EVAL_CHUNK of the JAX trainer (jolineedle_tpu/train/trainer.py
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12
 # Peak operation rate by input type: bfloat16 on the tensor cores; float32
-# on the CUDA cores (the kernels do exact float32 FMAs, TF32 is off).
+# on the CUDA cores (dwblock and flash attention do exact float32 FMAs, TF32
+# is off).
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# The dense 3x3 kernels multiply float32 as 3xTF32: three TF32 tensor-core
+# products per float32 product, 495 / 3 TFLOP/s.
+PEAK_3XTF32_OPS_PER_S = 495e12 / 3
 TOLS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
@@ -112,6 +121,8 @@ TRAIN_B, TRAIN_ACCUM, TRAIN_ITERS, N_LAYER = 16, 2, 4, 3
 FLASH_SHAPES = [(TRAIN_B, 3, STEPS + 1, 16), (2, 4, 200, 64)]
 # The plain 3x3 conv: the smoke script's default and the nano stem.
 PLAIN_CONV_SHAPES = [(8, 56, 56, 16, 32), (N_PATCHES, PATCH // 2, PATCH // 2, 12, 16)]
+# The dense 3x3 convs of a wider variant, held and timed beside the path.
+WIDE_VARIANT = "yolox-s"
 KERNEL_NAMES = ("dwblock_bn_silu", "conv3x3_bn_silu", "flash_attention", "conv3x3")
 
 CARD = ""  # "name, power limit" from nvidia-smi, set in main()
@@ -139,9 +150,9 @@ def median_ms(fn, reps: int = REPS) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
+def bound(n_bytes: float, n_ops: float, dtype, peak=None) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS_PER_S[dtype] * 1e3
+    t_ops = n_ops / (peak or PEAK_OPS_PER_S[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -185,6 +196,27 @@ def path_shapes(model) -> dict:
     return out
 
 
+def dense_conv_shapes(variant: str) -> Counter:
+    """Counter((H, W, C, K)): the ``conv3x3_bn_silu`` launches of one
+    forward of a ``variant`` detector on a 448 px patch, read from its
+    module tree (every dense stride-1 3x3 ``ConvBnAct``)."""
+    from jolineedle_tpu_torch.models.yolox import ConvBnAct, NeedleYOLOX
+
+    model = NeedleYOLOX(variant, device="cuda").eval()
+    seen = Counter()
+
+    def record(module, inputs, output):
+        _, C, H, W = inputs[0].shape
+        seen[(H, W, C, output.shape[1])] += 1
+
+    for m in model.modules():
+        if isinstance(m, ConvBnAct) and m.uses_conv3x3_kernel:
+            m.register_forward_hook(record)
+    with torch.no_grad():
+        model(torch.zeros((1, 3, PATCH, PATCH), device="cuda"))
+    return seen
+
+
 # --- phase 3: kernels against their plain versions -----------------------------
 def _bn(gen, n):
     dev = gen.device
@@ -225,14 +257,17 @@ def measure_dwblock(kconv, H, W, C, K, dtype, gen):
 
 
 def measure_conv3x3(kconv, H, W, C, K, dtype, gen):
+    """The kernel is timed on the wrapper's own operands (the filter in x's
+    dtype, BN folded); the plain version runs on the caller's float32
+    filter."""
     dev = gen.device
     x = torch.randn((N_PATCHES, H, W, C), generator=gen, device=dev).to(dtype)
     w = torch.randn((3, 3, C, K), generator=gen, device=dev) / (9 * C) ** 0.5
     bn = _bn(gen, K)
+    operands = kconv.conv3x3_bn_silu_operands(x, w, *bn)
+    scale, bias = operands[1:]
     got = kconv.conv3x3_bn_silu(x, w, *bn)
     want = kconv.conv3x3_bn_silu_reference(x.float(), w, *bn)
-    scale, bias = kconv.fold_bn(*bn, 1e-3)
-    operands = (w.reshape(9 * C, K).contiguous(), scale, bias)
 
     xc = x.permute(0, 3, 1, 2)
     w_oihw = w.permute(3, 2, 0, 1).to(dtype)
@@ -242,19 +277,20 @@ def measure_conv3x3(kconv, H, W, C, K, dtype, gen):
         return F.silu(F.conv2d(xc, w_oihw, padding=1) * sc + bc)
 
     elt = x.element_size()
-    n_bytes = N_PATCHES * H * W * (C + K) * elt + 4 * (9 * C * K + 2 * K)
+    n_bytes = N_PATCHES * H * W * (C + K) * elt + 9 * C * K * elt + 4 * 2 * K
     n_ops = N_PATCHES * H * W * (2 * 9 * C * K + 2 * K)
     return _report(got, want, dtype, n_bytes, n_ops,
                    lambda: kconv.conv3x3_bn_silu_launch(x, operands),
-                   lambda: kconv.conv3x3_bn_silu_reference(x, w, *bn), library)
+                   lambda: kconv.conv3x3_bn_silu_reference(x, w, *bn), library,
+                   peak=PEAK_3XTF32_OPS_PER_S if dtype == torch.float32 else None)
 
 
-def _report(got, want, dtype, n_bytes, n_ops, kernel_fn, plain_fn, library_fn):
+def _report(got, want, dtype, n_bytes, n_ops, kernel_fn, plain_fn, library_fn, peak=None):
     torch.cuda.synchronize()
     atol, rtol = TOLS[dtype]
     err = (got.float() - want).abs().max().item()
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
-    bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
+    bound_ms, bound_by = bound(n_bytes, n_ops, dtype, peak)
     return {
         "max_abs_err": err,
         "ms": median_ms(kernel_fn),
@@ -302,16 +338,17 @@ def measure_plain_conv(kconv, B, H, W, C, K, dtype, gen):
     dev = gen.device
     x = torch.randn((B, H, W, C), generator=gen, device=dev).to(dtype)
     w = torch.randn((3, 3, C, K), generator=gen, device=dev) / (9 * C) ** 0.5
+    wf = kconv.conv3x3_filter(w, x.dtype)  # the wrapper's own preparation
     got = kconv.conv3x3(x, w)
     want = kconv.conv3x3_reference(x.float(), w)
-    wf = w.reshape(9 * C, K).contiguous()
     xc, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).to(dtype)
-    n_bytes = B * H * W * (C + K) * x.element_size() + 4 * 9 * C * K
+    n_bytes = (B * H * W * (C + K) + 9 * C * K) * x.element_size()
     n_ops = B * H * W * 2 * 9 * C * K
     return _report(got, want, dtype, n_bytes, n_ops,
                    lambda: kconv.conv3x3_launch(x, wf),
                    lambda: kconv.conv3x3_reference(x, w),
-                   lambda: F.conv2d(xc, w_oihw, padding=1))
+                   lambda: F.conv2d(xc, w_oihw, padding=1),
+                   peak=PEAK_3XTF32_OPS_PER_S if dtype == torch.float32 else None)
 
 
 KERNELS = {
@@ -355,6 +392,27 @@ def kernel_phase(kconv, shapes, seed):
     return rows
 
 
+def wide_variant_phase(kconv, seed):
+    """conv3x3_bn_silu at every dense stride-1 3x3 shape of the wide
+    variant's detector at 448 px, N = 32 patches, both dtypes: rows held
+    like the path's, but not on the path."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    per_call = dense_conv_shapes(WIDE_VARIANT)
+    rows = []
+    for (H, W, C, K), n in sorted(per_call.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            r = measure_conv3x3(kconv, H, W, C, K, dtype, gen)
+            r.update(name="conv3x3_bn_silu", variant=WIDE_VARIANT,
+                     shape=[N_PATCHES, H, W, C, K], dtype=DTYPE_NAMES[dtype],
+                     per_detector_call=n)
+            rows.append(r)
+            say(f"kernel conv3x3_bn_silu ({WIDE_VARIANT}, {n} per detector call)"
+                f" x[{N_PATCHES},{H},{W},{C}]->{K} {DTYPE_NAMES[dtype]}: {r['ms']:.4f} ms,"
+                f" plain {r['plain_ms']:.4f} ms, cuDNN {r['library_ms']:.4f} ms, bound"
+                f" {r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| {r['max_abs_err']:.3g}")
+    return rows
+
+
 def new_kernel_phase(port, seed):
     """The flash kernel and the plain 3x3 conv at their shapes, both dtypes."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -380,13 +438,15 @@ def new_kernel_phase(port, seed):
     return rows
 
 
-def kernels_json(rows, new_rows, launches, by_path):
+def kernels_json(rows, new_rows, wide_rows, launches, by_path):
     """One entry per kernel. The fused conv blocks: their numbers summed over
     the launches of one detector call (bfloat16, the serving dtype), each
     shape in ``shapes``. Flash attention: one teacher-forced forward of the
     train step (3 launches at the decoder's shape, bfloat16). The plain 3x3
     conv: one call at the smoke script's default (bfloat16). ``launches``
-    sums every path's count; ``launches_by_path`` splits it."""
+    sums every path's count; ``launches_by_path`` splits it. The wide
+    variant's rows go under conv3x3_bn_silu's ``wide_variant_shapes``,
+    outside its totals."""
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
     out = []
@@ -424,6 +484,10 @@ def kernels_json(rows, new_rows, launches, by_path):
             "timed_as": timed_as,
             "shapes": [{k: r[k] for k in keys + extra} for r in mine],
         })
+        if name == "conv3x3_bn_silu":
+            out[-1]["wide_variant_shapes"] = [
+                {k: r[k] for k in ("variant",) + keys + ("per_detector_call",)}
+                for r in wide_rows]
     return out
 
 
@@ -667,12 +731,22 @@ def serve_phase(port, model_dir, seed):
     return launches
 
 
+# The device symbols of the port's kernels (the tile's second template
+# argument is its BN + SiLU flag), for their totals in a profile.
+PORT_KERNEL_SYMBOLS = {
+    "conv3x3_bn_silu": "conv3x3_tile_kernel<__nv_bfloat16, true",
+    "conv3x3": "conv3x3_tile_kernel<__nv_bfloat16, false",
+    "dwblock_bn_silu": "dwblock_kernel<",
+    "flash_attention": "flash_fwd_kernel<",
+}
+
+
 def profile_run(what, untraced_ms, fn, top=8, unit=("rollout step", STEPS)):
     """``fn`` once under ``torch.profiler``: the device's busy time (the
     union of the traced kernel and copy intervals) against ``untraced_ms``,
     the same work's wall time without the profiler (which adds host time of
-    its own), the device operations per ``unit``, and the ``top`` kernels by
-    device time."""
+    its own), the device operations per ``unit``, the ``top`` kernels by
+    device time, and the bf16 port kernels' totals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -698,6 +772,11 @@ def profile_run(what, untraced_ms, fn, top=8, unit=("rollout step", STEPS)):
         f" {len(spans) / unit[1]:.0f} device operations per {unit[0]}")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         say(f"  {us / 1e3:9.3f} ms {n:6d}x {name[:100]}")
+    for kernel, pattern in PORT_KERNEL_SYMBOLS.items():
+        hits = [v for name, v in by_name.items() if pattern in name]
+        if hits:
+            say(f"  port kernel {kernel}: {sum(us for _, us in hits) / 1e3:.3f} ms in"
+                f" {sum(n for n, _ in hits)} launches")
 
 
 # --- phase 6: the smoke-conv script ------------------------------------------------
@@ -884,7 +963,7 @@ def main(argv=None) -> int:
     say(f"build: {sorted(built)} in {time.perf_counter() - start:.2f} s")
     for name, (_, log) in built.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
     # The flagship model, with weights from the seed, written as a model dir.
@@ -903,6 +982,7 @@ def main(argv=None) -> int:
     shapes = path_shapes(model)
     rows = kernel_phase(port.kconv, shapes, args.seed)
     new_rows = new_kernel_phase(port, args.seed)
+    wide_rows = wide_variant_phase(port.kconv, args.seed)
 
     # 4. reference
     models = reference_phase(model_config, actions_info, model.state_dict(), args.seed)
@@ -918,7 +998,8 @@ def main(argv=None) -> int:
     for name in KERNEL_NAMES:
         require(launches[name] > 0, f"{name} was launched no time on its path")
 
-    print(json.dumps({"kernels": kernels_json(rows, new_rows, launches, by_path)}), flush=True)
+    print(json.dumps({"kernels": kernels_json(rows, new_rows, wide_rows, launches, by_path)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

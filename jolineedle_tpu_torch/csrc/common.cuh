@@ -1,5 +1,5 @@
-// Helpers shared by the fused conv kernels: element conversion, SiLU and
-// the spatial tiling both kernels use (one thread block per 8x8 tile of
+// Helpers shared by the conv kernels: element conversion and SiLU, and the
+// spatial tiling of dwblock_bn_silu.cu (one thread block per 8x8 tile of
 // output pixels, with a one-pixel halo on every side for the 3x3 taps).
 #pragma once
 

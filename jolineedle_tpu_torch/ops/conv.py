@@ -16,7 +16,8 @@ On a CPU tensor a wrapper computes its plain version (``*_reference``, the
 same arithmetic in PyTorch ops); on a CUDA tensor it launches its kernel or
 raises — there is no fallback. BatchNorm is folded to a per-channel scale
 and bias in float32 here, as ``_fold_bn`` does in the JAX package. ``x`` and
-the output are float32 or bfloat16; the kernels accumulate in float32.
+the output are float32 or bfloat16; the kernels accumulate in float32. The
+dense 3x3 kernels take their filter in x's dtype (:func:`conv3x3_filter`).
 
 Each wrapper counts, as plain integers on the function object, ``calls``
 (every call) and ``launches`` (kernel launches only).
@@ -177,15 +178,19 @@ def conv3x3_bn_silu(x, w, gamma, beta, mean, var, eps=1e-3):
 
     Replaces ``jolineedle_tpu/ops/conv.py:68`` (Pallas im2col of a whole
     image in VMEM, which could not hold the Focus stem's 224x224x12 input).
-    On the H100 this is an implicit GEMM with M = pixels, N = K and depth
-    9C, run on the CUDA cores in float32. At the stem (C=12, K=16) it does
-    about 3.5 kflop per pixel against 56 bytes (f32) moved, so in f32 it is
-    bound by operations and in bf16 by bytes. The design keeps both low:
-    one thread block per 8x8 pixel tile and 64-wide slice of K stages the
-    halo tile and the matching [9C, K] filter slice in shared memory,
-    16 channels at a time, masks the SAME border itself (no padded copy,
-    no im2col in HBM) and keeps 4 pixels x up to 4 outputs per thread in
-    registers.
+    On the H100 this is an implicit GEMM on the tensor cores with M =
+    pixels, N = K and depth 9C (``csrc/conv3x3_tile.cuh``): bf16 products
+    with float32 sums in bf16, 3xTF32 in float32. At the stem (C=12, K=16)
+    it is bound by bytes in bf16. Persistent blocks walk tiles 16 pixels
+    wide (32 rows at the stem, else 8); each loads the next tiles' halo
+    while this tile's MMAs run (at the stem as one TMA box of contiguous
+    rows, elsewhere with cp.async pixel by pixel), masks the SAME border and
+    pads C and K with zeros in shared memory (no padded copy, no im2col in
+    HBM), and applies BN and SiLU to the float32 sums in registers.
+
+    The kernel takes the filter in x's dtype (:func:`conv3x3_filter`): a
+    bf16 conv multiplies a bf16-rounded filter, as flax's
+    ``nn.Conv(dtype=bfloat16)`` does.
     """
     conv3x3_bn_silu.calls += 1
     if x.device.type == "cpu":
@@ -197,15 +202,29 @@ def conv3x3_bn_silu(x, w, gamma, beta, mean, var, eps=1e-3):
         dict(w=w, gamma=gamma, beta=beta, mean=mean, var=var),
         dict(w=(3, 3, C, K), gamma=(K,), beta=(K,), mean=(K,), var=(K,)),
     )
-    scale, bias = fold_bn(gamma, beta, mean, var, eps)
-    wf = w.float().reshape(9 * C, K).contiguous()
-    return conv3x3_bn_silu_launch(x, (wf, scale, bias))
+    operands = conv3x3_bn_silu_operands(x, w, gamma, beta, mean, var, eps)
+    return conv3x3_bn_silu_launch(x, operands)
+
+
+def conv3x3_filter(w, dtype):
+    """The filter as the conv kernels take it: HWIO ``w`` as a contiguous
+    ``[9C, K]`` tensor in ``dtype`` (x's)."""
+    C, K = w.shape[2:]
+    wf = torch.empty(w.shape, dtype=dtype, device=w.device)
+    return wf.copy_(w).view(9 * C, K)  # one cast-and-copy
+
+
+def conv3x3_bn_silu_operands(x, w, gamma, beta, mean, var, eps=1e-3):
+    """The kernel's operands of :func:`conv3x3_bn_silu`: the filter in x's
+    dtype (:func:`conv3x3_filter`) and BN folded to float32 scale and
+    bias."""
+    return (conv3x3_filter(w, x.dtype), *fold_bn(gamma, beta, mean, var, eps))
 
 
 def conv3x3_bn_silu_launch(x, operands):
-    """The conv3x3_bn_silu kernel alone, on a checked CUDA ``x`` and the prepared
-    float32 ``operands`` (w [9C, K], scale, bias) that
-    :func:`conv3x3_bn_silu` folds from its arguments."""
+    """The conv3x3_bn_silu kernel alone, on a checked CUDA ``x`` and the
+    ``operands`` (w [9C, K] in x's dtype, float32 scale and bias) that
+    :func:`conv3x3_bn_silu_operands` prepares."""
     B, H, W, C = x.shape
     K = operands[0].shape[1]
     out = torch.empty((B, H, W, K), dtype=x.dtype, device=x.device)
@@ -226,21 +245,22 @@ def conv3x3(x, w):
     dtype, accumulated in float32.
 
     Replaces ``scripts/smoke_pallas_conv.py:67`` ``pallas_conv3x3`` (Pallas,
-    one padded image per program, im2col in VMEM). The kernel is the tiled
-    implicit GEMM of :func:`conv3x3_bn_silu` (``csrc/conv3x3_tile.cuh``)
-    with the identity epilogue: no padded copy and no im2col in HBM.
+    one padded image per program, im2col in VMEM). The kernel is the
+    tensor-core implicit GEMM of :func:`conv3x3_bn_silu`
+    (``csrc/conv3x3_tile.cuh``) with the identity epilogue, on the filter
+    in x's dtype: no padded copy and no im2col in HBM.
     """
     conv3x3.calls += 1
     if x.device.type == "cpu":
         return conv3x3_reference(x, w)
     C, K = x.shape[-1], w.shape[-1]
     _check_launch("conv3x3", x, dict(w=w), dict(w=(3, 3, C, K)))
-    return conv3x3_launch(x, w.float().reshape(9 * C, K).contiguous())
+    return conv3x3_launch(x, conv3x3_filter(w, x.dtype))
 
 
 def conv3x3_launch(x, wf):
-    """The conv3x3 kernel alone, on a checked CUDA ``x`` and the float32
-    filter ``wf`` [9C, K] that :func:`conv3x3` prepares."""
+    """The conv3x3 kernel alone, on a checked CUDA ``x`` and the filter
+    ``wf`` [9C, K] in x's dtype that :func:`conv3x3_filter` prepares."""
     B, H, W, C = x.shape
     K = wf.shape[1]
     out = torch.empty((B, H, W, K), dtype=x.dtype, device=x.device)

@@ -11,8 +11,9 @@ machine with an NVIDIA GPU:
 Knobs, as the original script's: ``SMOKE_B`` (8), ``SMOKE_HW`` (56),
 ``SMOKE_C`` (16), ``SMOKE_K`` (32), ``SMOKE_ITERS`` (50). Prints one JSON
 line: the shape, the max error against ``F.conv2d`` computed in float32 on
-the same bf16 inputs (TF32 off), and the kernel's and cuDNN's microseconds
-per call (CUDA events over ``SMOKE_ITERS`` calls) with their GFLOP/s.
+the same bf16 inputs (TF32 off), and the kernel's and cuDNN's device
+microseconds per call (CUDA events around ``SMOKE_ITERS`` calls queued
+behind a sleep kernel) with their GFLOP/s.
 """
 
 from __future__ import annotations
@@ -28,9 +29,13 @@ from ..ops.conv import conv3x3
 
 
 def _per_call_us(fn, iters: int) -> float:
+    """Device time per call: a sleep kernel first lets the host queue all
+    ``iters`` calls (wrapper included) before the device reaches them, so
+    the events time the kernels and not the host's enqueue."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()

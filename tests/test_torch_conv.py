@@ -115,6 +115,70 @@ def test_plain_conv3x3_matches_smoke_pallas_conv(shape):
     np.testing.assert_allclose(ref.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+# bf16: the kernels multiply the filter rounded to bf16 (conv3x3_filter);
+# its error, and the output's rounding to bf16, stay inside the tolerance
+# the card is held to.
+BF16_TOLS = dict(atol=3e-2, rtol=2e-2)
+BF16_SHAPES = [(2, 28, 28, 12, 16), (1, 10, 10, 40, 130)]
+
+
+@pytest.mark.parametrize("kernel", ["conv3x3_bn_silu", "conv3x3"])
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_bf16_filter_matches_jax(shape, kernel):
+    """The plain versions fed the filter as the bf16 kernels take it
+    (rounded to bf16) against the JAX Pallas kernels with the float32
+    filter: the rounding stays inside the bf16 tolerance."""
+    import jax.numpy as jnp
+
+    x, w, *bn = _conv_inputs(shape, 8)
+    C, K = shape[3:]
+    wk = tconv.conv3x3_filter(torch.from_numpy(w), torch.bfloat16).float().reshape(3, 3, C, K)
+    assert not torch.equal(wk, torch.from_numpy(w))  # the rounding is real
+    tx = torch.from_numpy(x)
+    if kernel == "conv3x3_bn_silu":
+        from jolineedle_tpu.ops.conv import conv3x3_bn_silu as jax_conv
+
+        want = np.asarray(jax_conv(*[jnp.asarray(a) for a in (x, w, *bn)]))
+        got = tconv.conv3x3_bn_silu_reference(tx, wk, *[torch.from_numpy(a) for a in bn])
+    else:
+        want = np.asarray(_smoke_pallas_conv().pallas_conv3x3(jnp.asarray(x), jnp.asarray(w)))
+        got = tconv.conv3x3_reference(tx, wk)
+    np.testing.assert_allclose(got.numpy(), want, **BF16_TOLS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BF16_SHAPES)
+def test_conv3x3_operands(shape, dtype):
+    """What the wrappers hand the dense 3x3 kernels, without a launch: the
+    filter as a contiguous [9C, K] in x's dtype (from the HWIO view of an
+    OIHW weight, as the model passes it) and BN folded in float32."""
+    x, w, *bn = [torch.from_numpy(a) for a in _conv_inputs(shape, 9)]
+    B, H, W, C, K = shape
+    x = x.to(dtype)
+    w_hwio = w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)  # not contiguous
+    launches = tconv.conv3x3_bn_silu.launches, tconv.conv3x3.launches
+    wf, scale, bias = tconv.conv3x3_bn_silu_operands(x, w_hwio, *bn)
+    assert wf.shape == (9 * C, K) and wf.dtype == dtype and wf.is_contiguous()
+    assert torch.equal(wf, w.to(dtype).reshape(9 * C, K))
+    assert torch.equal(tconv.conv3x3_filter(w_hwio, x.dtype), wf)
+    assert scale.dtype == bias.dtype == torch.float32 and scale.shape == bias.shape == (K,)
+    want_scale, want_bias = tconv.fold_bn(*bn, 1e-3)
+    assert torch.equal(scale, want_scale) and torch.equal(bias, want_bias)
+    assert (tconv.conv3x3_bn_silu.launches, tconv.conv3x3.launches) == launches
+
+
+def test_conv_ablation_edits_match_the_tile_source():
+    """Every source edit of the ablation script still finds its text in
+    csrc/conv3x3_tile.cuh (the script itself runs only on the card)."""
+    from jolineedle_tpu_torch.ops.kernels import CSRC
+    from jolineedle_tpu_torch.scripts.conv_ablation import VARIANTS
+
+    src = (CSRC / "conv3x3_tile.cuh").read_text()
+    for name, edits in VARIANTS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (name, old)
+
+
 def test_cpu_path_does_not_launch():
     """A CPU tensor goes to the plain version and never counts a launch."""
     tconv.reset_counts()
@@ -162,13 +226,48 @@ def cuda():
     return torch.device("cuda")
 
 
-# f32: sums in another order than the plain version (FMA, tap-major);
-# bf16: the kernel output rounds to bf16 (2^-8 relative) against an f32
-# plain version.
+# f32: sums in another order than the plain version (3xTF32 products for
+# the dense 3x3); bf16: the kernel output rounds to bf16 (2^-8 relative)
+# against an f32 plain version on the caller's float32 filter (the dense
+# 3x3 kernels multiply it rounded to bf16).
 TOLS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}
 
 GPU_DW = DW_SHAPES + [(3, 14, 14, 128, 128), (2, 13, 9, 64, 32)]
-GPU_CONV = CONV_SHAPES + [(2, 33, 17, 12, 16), (1, 10, 10, 40, 130)]
+# (shape, offset): the shapes the dense 3x3 tiling (16 pixels wide; K slices
+# of 16/32/64, channel chunks) makes risky: ragged tiles, B = 1, an image
+# smaller than a tile, C = 3 and 12 (no 16-byte pixel), C = 48 at K = 16
+# (two channel chunks in a 32-row tile), K = 130 (three slices, an odd
+# tail), one yolox-s width per level (64 at 56², 128 at 28², 256 at 14²).
+# bf16 at C = 4 or 12, K <= 16 and W * C * 2 a multiple of 16 takes the
+# TMA box of packed rows (28², 9 x 10 x 4, and 8² at an offset that keeps
+# 16-byte alignment); at odd W, or K > 16 (20² x 130, 30 x 36 x 32), the
+# pixel copies.
+# offset: x is the batch slice x_big[1:] of a contiguous buffer, so at an
+# odd H*W*C a bf16 x is only 2-byte aligned.
+RISKY_CONV = [
+    ((2, 33, 17, 12, 16), False), ((1, 10, 10, 40, 130), False),
+    ((1, 28, 28, 12, 16), False), ((2, 5, 7, 12, 16), False), ((2, 12, 12, 3, 16), False),
+    ((1, 12, 12, 48, 16), False), ((1, 20, 20, 12, 130), False),
+    ((2, 30, 36, 12, 32), False), ((2, 9, 10, 4, 16), False), ((2, 8, 8, 12, 16), True),
+    ((1, 20, 20, 16, 130), False), ((2, 5, 7, 3, 16), True), ((2, 9, 7, 5, 40), True),
+    ((1, 56, 56, 64, 64), False), ((1, 28, 28, 128, 128), False),
+    ((1, 14, 14, 256, 256), False),
+]
+GPU_CONV = [(shape, False) for shape in CONV_SHAPES] + RISKY_CONV
+
+
+def _gpu_conv_operands(shape, seed, dtype, offset, device):
+    """x (in ``dtype``; with ``offset``, a batch slice one image into a
+    contiguous buffer) and the float32 arguments."""
+    B, H, W, C, K = shape
+    x, *args = [torch.from_numpy(a).to(device) for a in _conv_inputs(shape, seed)]
+    x = x.to(dtype)
+    if offset:
+        x_big = torch.zeros((B + 1, H, W, C), dtype=dtype, device=device)
+        x_big[1:] = x
+        x = x_big[1:]
+        assert x.is_contiguous() and x.storage_offset() == H * W * C
+    return x, args
 
 
 @pytest.mark.gpu
@@ -188,31 +287,28 @@ def test_dwblock_kernel_matches_plain(cuda, shape, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", GPU_CONV)
-def test_conv3x3_kernel_matches_plain(cuda, shape, dtype):
-    args = [torch.from_numpy(a).to(cuda) for a in _conv_inputs(shape, 5)]
-    x = args[0].to(dtype)
+@pytest.mark.parametrize("shape, offset", GPU_CONV)
+def test_conv3x3_kernel_matches_plain(cuda, shape, offset, dtype):
+    x, args = _gpu_conv_operands(shape, 5, dtype, offset, cuda)
     launches = tconv.conv3x3_bn_silu.launches
-    got = tconv.conv3x3_bn_silu(x, *args[1:])
+    got = tconv.conv3x3_bn_silu(x, *args)
     torch.cuda.synchronize()
     assert tconv.conv3x3_bn_silu.launches == launches + 1
-    want = tconv.conv3x3_bn_silu_reference(x.float(), *args[1:])
+    want = tconv.conv3x3_bn_silu_reference(x.float(), *args)
     atol, rtol = TOLS[dtype]
     torch.testing.assert_close(got.float(), want, atol=atol, rtol=rtol)
 
 
-# The smoke script's default (B=8, 56x56, 16 -> 32), the nano stem, a
-# ragged one and a K that takes two 64-wide slices.
-GPU_PLAIN_CONV = [(8, 56, 56, 16, 32), (2, 224, 224, 12, 16), (2, 33, 17, 12, 16),
-                  (1, 10, 10, 40, 130)]
+# The smoke script's default (B=8, 56x56, 16 -> 32), the nano stem, and the
+# shapes the tiling makes risky.
+GPU_PLAIN_CONV = [((8, 56, 56, 16, 32), False), ((2, 224, 224, 12, 16), False)] + RISKY_CONV
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", GPU_PLAIN_CONV)
-def test_plain_conv3x3_kernel_matches_plain(cuda, shape, dtype):
-    x, w = (torch.from_numpy(a).to(cuda) for a in _conv_inputs(shape, 6)[:2])
-    x = x.to(dtype)
+@pytest.mark.parametrize("shape, offset", GPU_PLAIN_CONV)
+def test_plain_conv3x3_kernel_matches_plain(cuda, shape, offset, dtype):
+    x, (w, *_) = _gpu_conv_operands(shape, 6, dtype, offset, cuda)
     launches = tconv.conv3x3.launches
     got = tconv.conv3x3(x, w)
     torch.cuda.synchronize()
