@@ -9,12 +9,15 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
 2. build: every CUDA kernel of ``jolineedle_tpu_torch/csrc`` with ``nvcc``,
    one process per source, into ``build/kernels/``;
 3. kernels: each kernel at every shape the serving path gives it at 448 px,
-   for N = 32 patches, in float32 and bfloat16, against its plain PyTorch
-   version (float32 atol = rtol = 1e-4 with TF32 off; bfloat16 against the
-   plain version in float32, atol 3e-2 and rtol 2e-2: the kernel rounds its
-   output to bfloat16), with the median of 20 CUDA-event timings of the
-   kernel, the plain version and a cuDNN yardstick (``F.conv2d`` with the
-   same BN and SiLU ops, which the port never calls) beside the bound;
+   for N = 32 patches, in float32 and bfloat16 (dwblock also at N = 1, the
+   B = 1 request, in bfloat16), against its plain PyTorch version (float32
+   atol = rtol = 1e-4 with TF32 off; bfloat16 against the plain version in
+   float32, atol 3e-2 and rtol 2e-2: the kernel rounds its output to
+   bfloat16), with the median of 20 CUDA-event timings of the kernel, the
+   plain version and a cuDNN yardstick (``F.conv2d`` with the same BN and
+   SiLU ops, which the port never calls) beside the bound. dwblock is timed
+   as the wrapper's whole call on the model's arguments (one launch: the
+   kernel folds BN and reads the OIHW weight views through their strides);
 4. reference: the float32 model on the card against the same model on the
    CPU (the plain versions of the kernels) on small inputs: the detector,
    the teacher-forced decoder and a greedy rollout (with a sharpened action
@@ -86,10 +89,9 @@ N_PATCHES = 32  # EVAL_CHUNK of the JAX trainer (jolineedle_tpu/train/trainer.py
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12
 # Peak operation rate by input type: bfloat16 on the tensor cores; float32
-# on the CUDA cores (dwblock and flash attention do exact float32 FMAs, TF32
-# is off).
+# on the CUDA cores (flash attention does exact float32 FMAs, TF32 is off).
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# The dense 3x3 kernels multiply float32 as 3xTF32: three TF32 tensor-core
+# The conv kernels multiply float32 as 3xTF32: three TF32 tensor-core
 # products per float32 product, 495 / 3 TFLOP/s.
 PEAK_3XTF32_OPS_PER_S = 495e12 / 3
 TOLS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}
@@ -148,6 +150,26 @@ def median_ms(fn, reps: int = REPS) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def back_to_back_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time per launch of ``launches`` queued back to back between one
+    pair of CUDA events (median of ``reps``): a launch's cost inside a stream
+    of kernels, without the event pair that ``median_ms`` puts around each
+    one (about 3 us a launch on the H100, an empty kernel's difference)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
 
 
 def bound(n_bytes: float, n_ops: float, dtype, peak=None) -> tuple:
@@ -226,19 +248,21 @@ def _bn(gen, n):
             torch.rand(n, generator=gen, device=dev) + 0.5]
 
 
-def measure_dwblock(kconv, H, W, C, K, dtype, gen):
+def measure_dwblock(kconv, H, W, C, K, dtype, gen, n=N_PATCHES):
+    """The kernel is timed as the wrapper's whole call on the model's own
+    arguments (HWIO views of OIHW weights, raw BN vectors; the fold happens
+    in the kernel); the plain version runs on the same float32 weights."""
     dev = gen.device
-    x = torch.randn((N_PATCHES, H, W, C), generator=gen, device=dev).to(dtype)
-    dw = torch.randn((3, 3, 1, C), generator=gen, device=dev) * 0.2
-    pw = torch.randn((1, 1, C, K), generator=gen, device=dev) / C**0.5
+    x = torch.randn((n, H, W, C), generator=gen, device=dev).to(dtype)
+    dw = (torch.randn((C, 1, 3, 3), generator=gen, device=dev) * 0.2).permute(2, 3, 1, 0)
+    pw = (torch.randn((K, C, 1, 1), generator=gen, device=dev) / C**0.5).permute(2, 3, 1, 0)
     bn1, bn2 = _bn(gen, C), _bn(gen, K)
     args = [dw, *bn1, pw, *bn2]
     got = kconv.dwblock_bn_silu(x, *args)
     want = kconv.dwblock_bn_silu_reference(x.float(), *args)
+
     s1, b1 = kconv.fold_bn(*bn1, 1e-3)
     s2, b2 = kconv.fold_bn(*bn2, 1e-3)
-    operands = (dw.reshape(9, C).contiguous(), s1, b1, pw.reshape(C, K).contiguous(), s2, b2)
-
     xc = x.permute(0, 3, 1, 2)  # NCHW view in channels_last memory
     w_dw = dw.permute(3, 2, 0, 1).to(dtype)  # [C, 1, 3, 3]
     w_pw = pw.permute(3, 2, 0, 1).to(dtype)  # [K, C, 1, 1]
@@ -249,19 +273,22 @@ def measure_dwblock(kconv, H, W, C, K, dtype, gen):
         return F.silu(F.conv2d(y, w_pw) * s2c + b2c)
 
     elt = x.element_size()
-    n_bytes = N_PATCHES * H * W * (C + K) * elt + 4 * (9 * C + C * K + 2 * C + 2 * K)
-    n_ops = N_PATCHES * H * W * (2 * 9 * C + 2 * C + 2 * C * K + 2 * K)
-    return _report(got, want, dtype, n_bytes, n_ops,
-                   lambda: kconv.dwblock_bn_silu_launch(x, operands),
-                   lambda: kconv.dwblock_bn_silu_reference(x, *args), library)
+    n_bytes = n * H * W * (C + K) * elt + 4 * (9 * C + C * K + 4 * C + 4 * K)
+    n_ops = n * H * W * (2 * 9 * C + 2 * C + 2 * C * K + 2 * K)
+    r = _report(got, want, dtype, n_bytes, n_ops,
+                lambda: kconv.dwblock_bn_silu(x, *args),
+                lambda: kconv.dwblock_bn_silu_reference(x, *args), library,
+                peak=PEAK_3XTF32_OPS_PER_S if dtype == torch.float32 else None)
+    r["back_to_back_ms"] = back_to_back_ms(lambda: kconv.dwblock_bn_silu(x, *args))
+    return r
 
 
-def measure_conv3x3(kconv, H, W, C, K, dtype, gen):
+def measure_conv3x3(kconv, H, W, C, K, dtype, gen, n=N_PATCHES):
     """The kernel is timed on the wrapper's own operands (the filter in x's
     dtype, BN folded); the plain version runs on the caller's float32
     filter."""
     dev = gen.device
-    x = torch.randn((N_PATCHES, H, W, C), generator=gen, device=dev).to(dtype)
+    x = torch.randn((n, H, W, C), generator=gen, device=dev).to(dtype)
     w = torch.randn((3, 3, C, K), generator=gen, device=dev) / (9 * C) ** 0.5
     bn = _bn(gen, K)
     operands = kconv.conv3x3_bn_silu_operands(x, w, *bn)
@@ -277,8 +304,8 @@ def measure_conv3x3(kconv, H, W, C, K, dtype, gen):
         return F.silu(F.conv2d(xc, w_oihw, padding=1) * sc + bc)
 
     elt = x.element_size()
-    n_bytes = N_PATCHES * H * W * (C + K) * elt + 9 * C * K * elt + 4 * 2 * K
-    n_ops = N_PATCHES * H * W * (2 * 9 * C * K + 2 * K)
+    n_bytes = n * H * W * (C + K) * elt + 9 * C * K * elt + 4 * 2 * K
+    n_ops = n * H * W * (2 * 9 * C * K + 2 * K)
     return _report(got, want, dtype, n_bytes, n_ops,
                    lambda: kconv.conv3x3_bn_silu_launch(x, operands),
                    lambda: kconv.conv3x3_bn_silu_reference(x, w, *bn), library,
@@ -374,21 +401,26 @@ KERNELS = {
 
 
 def kernel_phase(kconv, shapes, seed):
-    """Every (kernel, shape) of the path in both dtypes; returns rows."""
+    """Every (kernel, shape) of the path in both dtypes at N = 32 patches,
+    and each dwblock shape of the B = 1 request (N = 1) in bfloat16; returns
+    rows."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     per_call = shapes["embedder"] + shapes["detector"]
+    runs = [(key, dtype, N_PATCHES) for key in sorted(per_call)
+            for dtype in (torch.float32, torch.bfloat16)]
+    runs += [(key, torch.bfloat16, 1) for key in sorted(per_call) if key[0] == "dwblock_bn_silu"]
     rows = []
-    for (name, H, W, C, K) in sorted(per_call):
-        for dtype in (torch.float32, torch.bfloat16):
-            r = KERNELS[name]["measure"](kconv, H, W, C, K, dtype, gen)
-            r.update(name=name, shape=[N_PATCHES, H, W, C, K], dtype=DTYPE_NAMES[dtype],
-                     per_embedder_call=shapes["embedder"][(name, H, W, C, K)],
-                     per_detector_call=shapes["detector"][(name, H, W, C, K)])
-            rows.append(r)
-            say(f"kernel {name} x[{N_PATCHES},{H},{W},{C}]->{K} {DTYPE_NAMES[dtype]}:"
-                f" {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
-                f" cuDNN {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
-                f" ({r['bound_by']}), max |err| {r['max_abs_err']:.3g}")
+    for (name, H, W, C, K), dtype, n in runs:
+        r = KERNELS[name]["measure"](kconv, H, W, C, K, dtype, gen, n=n)
+        r.update(name=name, shape=[n, H, W, C, K], dtype=DTYPE_NAMES[dtype],
+                 per_embedder_call=shapes["embedder"][(name, H, W, C, K)],
+                 per_detector_call=shapes["detector"][(name, H, W, C, K)])
+        rows.append(r)
+        b2b = f" (back to back {r['back_to_back_ms']:.4f})" if "back_to_back_ms" in r else ""
+        say(f"kernel {name} x[{n},{H},{W},{C}]->{K} {DTYPE_NAMES[dtype]}:"
+            f" {r['ms']:.4f} ms{b2b}, plain {r['plain_ms']:.4f} ms,"
+            f" cuDNN {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
+            f" ({r['bound_by']}), max |err| {r['max_abs_err']:.3g}")
     return rows
 
 
@@ -443,7 +475,9 @@ def kernels_json(rows, new_rows, wide_rows, launches, by_path):
     the launches of one detector call (bfloat16, the serving dtype), each
     shape in ``shapes``. Flash attention: one teacher-forced forward of the
     train step (3 launches at the decoder's shape, bfloat16). The plain 3x3
-    conv: one call at the smoke script's default (bfloat16). ``launches``
+    conv: one call at the smoke script's default (bfloat16). dwblock's rows
+    at N = 1 (the B = 1 request) are in ``shapes``, outside the totals.
+    ``launches``
     sums every path's count; ``launches_by_path`` splits it. The wide
     variant's rows go under conv3x3_bn_silu's ``wide_variant_shapes``,
     outside its totals."""
@@ -453,9 +487,12 @@ def kernels_json(rows, new_rows, wide_rows, launches, by_path):
     for name, info in KERNELS.items():
         if name in ("dwblock_bn_silu", "conv3x3_bn_silu"):
             mine = [r for r in rows if r["name"] == name]
-            main = [(r, r["per_detector_call"]) for r in mine if r["dtype"] == "bfloat16"]
+            main = [(r, r["per_detector_call"]) for r in mine
+                    if r["dtype"] == "bfloat16" and r["shape"][0] == N_PATCHES]
             timed_as = f"one detector call's launches at N={N_PATCHES} patches of {PATCH} px, bfloat16"
             extra = ("per_embedder_call", "per_detector_call")
+            if name == "dwblock_bn_silu":
+                extra += ("back_to_back_ms",)
         else:
             mine = [r for r in new_rows if r["name"] == name]
             first = [r for r in mine if r["dtype"] == "bfloat16"][0]
@@ -468,6 +505,8 @@ def kernels_json(rows, new_rows, wide_rows, launches, by_path):
         by = Counter()
         for r, n in main:
             by[r["bound_by"]] += r["bound_ms"] * n
+        totals = ({"back_to_back_ms": total("back_to_back_ms")}
+                  if name == "dwblock_bn_silu" else {})
         out.append({
             "name": name,
             "route": "cuda",
@@ -482,6 +521,7 @@ def kernels_json(rows, new_rows, wide_rows, launches, by_path):
             "bound_by": by.most_common(1)[0][0],
             "library_ms": total("library_ms"),
             "timed_as": timed_as,
+            **totals,
             "shapes": [{k: r[k] for k in keys + extra} for r in mine],
         })
         if name == "conv3x3_bn_silu":

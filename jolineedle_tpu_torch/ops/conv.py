@@ -15,7 +15,8 @@ vectors):
 On a CPU tensor a wrapper computes its plain version (``*_reference``, the
 same arithmetic in PyTorch ops); on a CUDA tensor it launches its kernel or
 raises — there is no fallback. BatchNorm is folded to a per-channel scale
-and bias in float32 here, as ``_fold_bn`` does in the JAX package. ``x`` and
+and bias in float32, as ``_fold_bn`` does in the JAX package: here for the
+dense 3x3 kernels, inside the kernel for ``dwblock_bn_silu``. ``x`` and
 the output are float32 or bfloat16; the kernels accumulate in float32. The
 dense 3x3 kernels take their filter in x's dtype (:func:`conv3x3_filter`).
 
@@ -31,6 +32,8 @@ import torch.nn.functional as F
 from .kernels import kernel
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: The widest C and K that ``dwblock_bn_silu``'s kernel takes.
+DWBLOCK_MAX_CHANNELS = 256
 
 
 def fold_bn(gamma, beta, mean, var, eps):
@@ -120,14 +123,20 @@ def dwblock_bn_silu(
 
     Replaces ``jolineedle_tpu/ops/conv.py:125`` (Pallas, one image per
     program in VMEM). On the H100 the block is bound by bytes: at the nano
-    widths (C = K = 16..128) it does 2*(9+K) flops per input value, far
-    below the card's ~20 flops per byte of f32 balance point. The kernel
-    therefore reads x once and writes the output once: one thread block per
-    8x8 tile of output pixels loads the tile's 3x3 halo into shared memory
-    (masking the SAME border itself, no padded copy in HBM), computes the
-    depthwise taps, BN1 and SiLU into a float32 ``mid`` tile in shared
-    memory, and multiplies it by ``pw`` (read through L1) — ``mid`` never
-    reaches HBM, which is the point of the fusion on both machines.
+    widths (C = K = 16..128) it does 2*(9+K) flops per input value. The
+    kernel (``csrc/dwblock_bn_silu.cu``) reads x once and writes the output
+    once: persistent blocks walk tiles of up to 8 x 16 pixels, each tile's
+    halo arriving by TMA (zeros outside the image: the SAME border) while
+    the previous tile computes; the depthwise, BN1 and SiLU run in float32
+    registers into a ``mid`` tile in shared memory, which the tensor cores
+    multiply by ``pw`` (bf16 products with float32 sums in bf16, 3xTF32 in
+    float32) before BN2 and SiLU — ``mid`` never reaches HBM, which is the
+    point of the fusion on both machines.
+
+    A CUDA call is one device operation: the kernel folds BN itself and
+    reads the float32 ``dw`` and ``pw`` through their strides, so the
+    model's permuted OIHW weight views pass with no copy. It takes C and K
+    up to 256, any B, H, W >= 1 and a contiguous x at any storage offset.
     """
     dwblock_bn_silu.calls += 1
     if x.device.type == "cpu":
@@ -143,26 +152,40 @@ def dwblock_bn_silu(
         dict(dw=(3, 3, 1, C), gamma1=(C,), beta1=(C,), mean1=(C,), var1=(C,),
              pw=(1, 1, C, K), gamma2=(K,), beta2=(K,), mean2=(K,), var2=(K,)),
     )
-    # Shared memory holds the (8+2)^2 halo and the 64-pixel mid tile, f32.
-    if (100 + 64) * C * 4 > 227 * 1024:
-        raise ValueError(f"dwblock_bn_silu: C={C} exceeds the kernel's shared memory")
-    s1, b1 = fold_bn(gamma1, beta1, mean1, var1, eps)
-    s2, b2 = fold_bn(gamma2, beta2, mean2, var2, eps)
-    dwf = dw.float().reshape(9, C).contiguous()
-    pwf = pw.float().reshape(C, K).contiguous()
-    return dwblock_bn_silu_launch(x, (dwf, s1, b1, pwf, s2, b2))
+    if C > DWBLOCK_MAX_CHANNELS or K > DWBLOCK_MAX_CHANNELS:
+        raise ValueError(
+            f"dwblock_bn_silu: C={C}, K={K}; the kernel takes at most"
+            f" {DWBLOCK_MAX_CHANNELS} channels in and out"
+        )
+    if min(x.shape[1:3]) < 1:
+        raise ValueError(f"dwblock_bn_silu: x has shape {tuple(x.shape)}; H and W must be >= 1")
+    for label, t in (("dw", dw), ("gamma1", gamma1), ("beta1", beta1), ("mean1", mean1),
+                     ("var1", var1), ("pw", pw), ("gamma2", gamma2), ("beta2", beta2),
+                     ("mean2", mean2), ("var2", var2)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"dwblock_bn_silu: {label} is {t.dtype}; the kernel takes float32")
+        if t.dim() == 1 and t.stride(0) != 1:
+            raise ValueError(f"dwblock_bn_silu: {label} must be contiguous")
+    return dwblock_bn_silu_launch(
+        x, dw, gamma1, beta1, mean1, var1, pw, gamma2, beta2, mean2, var2, eps
+    )
 
 
-def dwblock_bn_silu_launch(x, operands):
-    """The dwblock kernel alone, on a checked CUDA ``x`` and the prepared
-    float32 ``operands`` (dw [9, C], s1, b1, pw [C, K], s2, b2) that
-    :func:`dwblock_bn_silu` folds from its arguments."""
+def dwblock_bn_silu_launch(
+    x, dw, gamma1, beta1, mean1, var1, pw, gamma2, beta2, mean2, var2, eps=1e-3
+):
+    """The dwblock kernel alone, on the arguments that
+    :func:`dwblock_bn_silu` has checked: one launch, no other device
+    operation but the output's allocation."""
     B, H, W, C = x.shape
-    K = operands[3].shape[1]
+    K = pw.shape[-1]
     out = torch.empty((B, H, W, K), dtype=x.dtype, device=x.device)
     err = kernel("dwblock_bn_silu")(
-        x.data_ptr(), *(t.data_ptr() for t in operands), out.data_ptr(),
-        B, H, W, C, K, int(x.dtype == torch.bfloat16),
+        x.data_ptr(), dw.data_ptr(), gamma1.data_ptr(), beta1.data_ptr(),
+        mean1.data_ptr(), var1.data_ptr(), pw.data_ptr(), gamma2.data_ptr(),
+        beta2.data_ptr(), mean2.data_ptr(), var2.data_ptr(), out.data_ptr(),
+        B, H, W, C, K, dw.stride(0), dw.stride(1), dw.stride(3), pw.stride(2),
+        pw.stride(3), int(x.dtype == torch.bfloat16), float(eps),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _raise_on("dwblock_bn_silu", err)

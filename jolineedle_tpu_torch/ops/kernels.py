@@ -30,8 +30,9 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of each kernel library's entry point.
 SIGNATURES = {
-    # x, dw[9,C], s1, b1, pw[C,K], s2, b2, out, B, H, W, C, K, is_bf16, stream
-    "dwblock_bn_silu": [_P] * 8 + [_I] * 6 + [_P],
+    # x, dw, gamma1, beta1, mean1, var1, pw, gamma2, beta2, mean2, var2, out,
+    # B, H, W, C, K, dw strides (dy, dx, c), pw strides (c, k), is_bf16, eps, stream
+    "dwblock_bn_silu": [_P] * 12 + [_I] * 11 + [_F, _P],
     # x, w[9C,K], scale, bias, out, B, H, W, C, K, is_bf16, stream
     "conv3x3_bn_silu": [_P] * 5 + [_I] * 6 + [_P],
     # x, w[9C,K], out, B, H, W, C, K, is_bf16, stream

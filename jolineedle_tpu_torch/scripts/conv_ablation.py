@@ -1,21 +1,31 @@
-"""Where the dense 3x3 tile's time goes, on the card: the
-``conv3x3_bn_silu`` kernel built again with parts of its work switched off,
-each variant timed at the yolox-nano stem in bfloat16.
+"""Where the conv kernels' time goes, on the card: a kernel built again
+with parts of its work switched off, each variant timed in bfloat16.
 
-    python -m jolineedle_tpu_torch.scripts.conv_ablation
+    python -m jolineedle_tpu_torch.scripts.conv_ablation [--kernel tile|dwblock|both]
 
-Each variant is ``csrc/conv3x3_tile.cuh`` with the source edits listed in
-``VARIANTS``, built with the package's nvcc flags into ``build/ablation/``
-and timed with CUDA events (median of 20 launches queued behind a sleep
-kernel). ``pixel_copies`` loads the halo pixel by pixel with cp.async
-(as shapes without packed rows do), in place of the TMA box of rows. A variant that skips work writes wrong
+``tile``: ``csrc/conv3x3_tile.cuh`` (the ``conv3x3_bn_silu`` library) with
+the source edits listed in ``VARIANTS``, timed at the yolox-nano stem.
+``pixel_copies`` loads the halo pixel by pixel with cp.async (as shapes
+without packed rows do), in place of the TMA box of rows.
+
+``dwblock``: ``csrc/dwblock_bn_silu.cu`` with the edits of ``DW_VARIANTS``,
+timed at each dwblock shape of one yolox-nano detector call at 448 px (N =
+32 patches) through the wrapper's arguments (the model's OIHW weight views,
+raw BN vectors), and summed over the call's 24 launches; also timed back
+to back (20 launches between one pair of events), which leaves out the
+event pair's own cost around each launch.
+
+Each variant is built with the package's nvcc flags into
+``build/ablation/`` and timed with CUDA events (median of 20 launches
+queued behind a sleep kernel). A variant that skips work writes wrong
 outputs; only ``full`` and ``pixel_copies`` are held against the plain
-version. Prints one JSON line: the card, the shape
-and the milliseconds of each variant.
+version. Prints one JSON line per kernel: the card, the shapes and the
+milliseconds of each variant.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import shutil
@@ -58,29 +68,93 @@ VARIANTS = {
 }
 
 
-def _build(root: Path) -> dict:
+# The dwblock kernel's parts. The halo: past the ring's first two items
+# nothing loads (a TMA item's barrier is arrived on with no bytes).
+_DW_NO_LOADS = [
+    ("        tma_load_4d(full + (j & 1), dst, tmap,",
+     "        if (j >= 2)\n"
+     '          asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"'
+     ' ::"r"(smem_u32(full + (j & 1))) : "memory");\n'
+     "        else\n        tma_load_4d(full + (j & 1), dst, tmap,"),
+    ("      stage_halo<T>(dst, full + (j & 1), p, b, ty0, tx0, lane);",
+     "      if (j < 2) stage_halo<T>(dst, full + (j & 1), p, b, ty0, tx0, lane);\n"
+     '      else asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"'
+     ' ::"r"(smem_u32(full + (j & 1))) : "memory");'),
+]
+# p.K < 0 never holds and p.K > 0 always does, but the compiler cannot
+# tell: the code stays.
+_DW_NO_DEPTHWISE = [("    if (nr > 0)\n      depthwise<T>(", "    if (nr > 0 && p.K < 0)\n      depthwise<T>(")]
+_DW_NO_POINTWISE = [("      if (gy >= p.H) break;", "      if (gy >= p.H || p.K > 0) break;")]
+_DW_NO_STORES = [("          if (tx0 + px < p.W && e0 < kw)", "          if (tx0 + px < p.W && e0 < kw && p.K < 0)")]
+# The kernel returns at once: launch and timing overhead alone.
+_DW_EMPTY = [("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n\n  // This block's",
+              "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"
+              "  if (p.K > 0) return;\n\n  // This block's")]
+# No BN fold, taps or pw staged.
+_DW_NO_PROLOGUE = [("  for (int c = tid; c < p.C; c += kBlock) {\n    float d[9];",
+                    "  for (int c = tid; c < p.C && p.K < 0; c += kBlock) {\n    float d[9];"),
+                   ("  load_pw_batch(batch, tid, p, n0, kw, pw_pitch);",
+                    "  load_pw_batch(batch, tid, p, n0, p.K < 0 ? kw : 0, pw_pitch);"),
+                   ("  const int pw_total = kw * (pw_by4(p) ? p.C / 4 : p.C);",
+                    "  const int pw_total = p.K < 0 ? kw * (pw_by4(p) ? p.C / 4 : p.C) : 0;"),
+                   ("  for (int n = tid; n < kw; n += kBlock) {\n    const int k = n0 + n;",
+                    "  for (int n = tid; n < kw && p.K < 0; n += kBlock) {\n    const int k = n0 + n;")]
+# Tuning: at most 64 registers (4 blocks of 256 threads per SM) for slices
+# up to 64 wide; tiles of at most 8 rows.
+_DW_LB4 = [("__launch_bounds__(kBlock)\n    dwblock_kernel",
+            "__launch_bounds__(kBlock, kNT <= 64 ? 4 : 1)\n    dwblock_kernel")]
+_DW_ROWS8 = [("constexpr int kMaxRows = 16;", "constexpr int kMaxRows = 8;")]
+# bf16 SiLU without its tanh (one multiply in its place): the special
+# function unit's share.
+_DW_NO_TANH = [('    asm("tanh.approx.f32 %0, %1;\\n" : "=f"(t) : "f"(u));', "    t = u * 0.5f;")]
+_DW_LB3 = [("__launch_bounds__(kBlock)\n    dwblock_kernel",
+            "__launch_bounds__(kBlock, kNT <= 64 ? 3 : 1)\n    dwblock_kernel")]
+DW_VARIANTS = {
+    "full": [],
+    "lb4": _DW_LB4,
+    "lb3": _DW_LB3,
+    "no_tanh": _DW_NO_TANH,
+    "rows8": _DW_ROWS8,
+    "empty": _DW_EMPTY,
+    "no_prologue": _DW_NO_PROLOGUE,
+    "no_stores": _DW_NO_STORES,
+    "loads_only": _DW_NO_DEPTHWISE + _DW_NO_POINTWISE,  # halo loads, prologue, loop
+    "depthwise_only": _DW_NO_LOADS + _DW_NO_POINTWISE,
+    "mma_and_epilogue_only": _DW_NO_LOADS + _DW_NO_DEPTHWISE + _DW_NO_STORES,
+    "loop_only": _DW_NO_LOADS + _DW_NO_DEPTHWISE + _DW_NO_POINTWISE,  # prologue, barriers, launch
+}
+# The dwblock shapes of one yolox-nano detector call at 448 px: (H, W, C,
+# K) and launches per call.
+DW_SHAPES = [((112, 112, 16, 16), 1), ((56, 56, 32, 32), 4), ((56, 56, 64, 64), 4),
+             ((28, 28, 64, 64), 9), ((14, 14, 64, 64), 4), ((14, 14, 128, 128), 2)]
+DW_N = 32
+
+
+def _build(root: Path, edited: str, library: str, variants: dict) -> dict:
+    """Every variant of ``csrc/<edited>`` built with the other sources
+    into ``root/<variant>/lib.so``; returns the ctypes entry points."""
     procs = {}
-    for name, edits in VARIANTS.items():
-        src = (CSRC / "conv3x3_tile.cuh").read_text()
+    for name, edits in variants.items():
+        src = (CSRC / edited).read_text()
         for old, new in edits:
             if old not in src:
-                raise RuntimeError(f"{name}: the tile source no longer holds {old!r}")
+                raise RuntimeError(f"{name}: {edited} no longer holds {old!r}")
             src = src.replace(old, new)
         d = root / name
         d.mkdir(parents=True)
-        (d / "conv3x3_tile.cuh").write_text(src)
-        for f in ("common.cuh", "conv3x3_bn_silu.cu"):
-            shutil.copy(CSRC / f, d / f)
+        for f in [*CSRC.glob("*.cuh"), CSRC / f"{library}.cu"]:
+            shutil.copy(f, d / f.name)
+        (d / edited).write_text(src)
         procs[name] = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "conv3x3_bn_silu.cu")],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / f"{library}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     fns = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"building {name} failed:\n{log}")
-        fn = ctypes.CDLL(str(root / name / "lib.so")).conv3x3_bn_silu
-        fn.argtypes, fn.restype = SIGNATURES["conv3x3_bn_silu"], ctypes.c_int
+        fn = getattr(ctypes.CDLL(str(root / name / "lib.so")), library)
+        fn.argtypes, fn.restype = SIGNATURES[library], ctypes.c_int
         fns[name] = fn
     return fns
 
@@ -99,21 +173,26 @@ def _median_ms(fn, reps: int = 20) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def main() -> dict:
-    if not torch.cuda.is_available():
-        raise SystemExit("conv_ablation needs an NVIDIA GPU: the kernel is CUDA-only")
-    root = BUILD_DIR.parent / "ablation"
-    shutil.rmtree(root, ignore_errors=True)
-    fns = _build(root)
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
+
+def _bn(gen, n):
+    return [torch.rand(n, generator=gen, device="cuda") + 0.5,
+            torch.randn(n, generator=gen, device="cuda") * 0.1,
+            torch.randn(n, generator=gen, device="cuda") * 0.1,
+            torch.rand(n, generator=gen, device="cuda") + 0.5]
+
+
+def tile_ablation(root: Path) -> dict:
+    fns = _build(root / "tile", "conv3x3_tile.cuh", "conv3x3_bn_silu", VARIANTS)
     B, H, W, C, K = STEM
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((B, H, W, C), generator=gen, device="cuda").to(torch.bfloat16)
     w = torch.randn((3, 3, C, K), generator=gen, device="cuda") / (9 * C) ** 0.5
-    bn = [torch.rand(K, generator=gen, device="cuda") + 0.5,
-          torch.randn(K, generator=gen, device="cuda") * 0.1,
-          torch.randn(K, generator=gen, device="cuda") * 0.1,
-          torch.rand(K, generator=gen, device="cuda") + 0.5]
+    bn = _bn(gen, K)
     operands = kconv.conv3x3_bn_silu_operands(x, w, *bn)
     out = torch.empty((B, H, W, K), dtype=x.dtype, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -129,12 +208,78 @@ def main() -> dict:
             want = kconv.conv3x3_bn_silu_reference(x.float(), w, *bn)
             torch.testing.assert_close(out.float(), want, atol=3e-2, rtol=2e-2)
         ms[name] = _median_ms(call)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    result = {"card": card, "shape": list(STEM), "dtype": "bfloat16", "ms": ms}
-    print(json.dumps(result), flush=True)
-    return result
+    return {"kernel": "conv3x3_tile", "card": _card(), "shape": list(STEM), "dtype": "bfloat16",
+            "ms": ms}
+
+
+def dwblock_ablation(root: Path) -> dict:
+    fns = _build(root / "dwblock", "dwblock_bn_silu.cu", "dwblock_bn_silu", DW_VARIANTS)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = {name: [] for name in fns}
+    b2b = {name: [] for name in fns}
+    for (H, W, C, K), _ in DW_SHAPES:
+        x = torch.randn((DW_N, H, W, C), generator=gen, device="cuda").to(torch.bfloat16)
+        # The model's arguments: HWIO views of OIHW weights, raw BN vectors.
+        dw = (torch.randn((C, 1, 3, 3), generator=gen, device="cuda") * 0.2).permute(2, 3, 1, 0)
+        pw = (torch.randn((K, C, 1, 1), generator=gen, device="cuda") / C**0.5).permute(2, 3, 1, 0)
+        args = [dw, *_bn(gen, C), pw, *_bn(gen, K)]
+        out = torch.empty((DW_N, H, W, K), dtype=x.dtype, device="cuda")
+        for name, fn in fns.items():
+            def call(fn=fn):
+                err = fn(x.data_ptr(), *(t.data_ptr() for t in args), out.data_ptr(),
+                         DW_N, H, W, C, K, dw.stride(0), dw.stride(1), dw.stride(3),
+                         pw.stride(2), pw.stride(3), 1, 1e-3, stream)
+                if err != 0:
+                    raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+            if name == "full":
+                call()
+                want = kconv.dwblock_bn_silu_reference(x.float(), *args)
+                torch.testing.assert_close(out.float(), want, atol=3e-2, rtol=2e-2)
+            ms[name].append(_median_ms(call))
+            b2b[name].append(_back_to_back_ms(call))
+    per_call = {name: sum(t * n for t, (_, n) in zip(v, DW_SHAPES)) for name, v in ms.items()}
+    return {"kernel": "dwblock_bn_silu", "card": _card(), "n": DW_N, "dtype": "bfloat16",
+            "shapes": [[DW_N, *shape] for shape, _ in DW_SHAPES],
+            "launches_per_detector_call": [n for _, n in DW_SHAPES], "ms": ms,
+            "detector_call_ms": per_call, "back_to_back_ms": b2b,
+            "back_to_back_detector_call_ms": {
+                name: sum(t * n for t, (_, n) in zip(v, DW_SHAPES)) for name, v in b2b.items()}}
+
+
+def _back_to_back_ms(fn, launches: int = 20, reps: int = 5) -> float:
+    """Device time per launch of ``launches`` queued back to back between
+    one pair of events (median of ``reps``): what a launch costs inside a
+    stream of kernels, without an event pair around each."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+def main(argv=None) -> list:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernel", choices=("tile", "dwblock", "both"), default="both")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("conv_ablation needs an NVIDIA GPU: the kernels are CUDA-only")
+    root = BUILD_DIR.parent / "ablation"
+    shutil.rmtree(root, ignore_errors=True)
+    results = []
+    for kernel, run in (("tile", tile_ablation), ("dwblock", dwblock_ablation)):
+        if args.kernel in (kernel, "both"):
+            results.append(run(root))
+            print(json.dumps(results[-1]), flush=True)
+    return results
 
 
 if __name__ == "__main__":

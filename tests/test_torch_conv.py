@@ -21,9 +21,10 @@ import torch
 
 from jolineedle_tpu_torch.ops import conv as tconv
 
-# (B, H, W, C, K): the shapes of tests/test_pallas_conv.py:18,40 and a
-# nano-like one (28x28, 16 -> 16).
-DW_SHAPES = [(2, 10, 10, 8, 12), (2, 28, 28, 16, 16)]
+# (B, H, W, C, K): the shapes of tests/test_pallas_conv.py:18,40, a
+# nano-like one (28x28, 16 -> 16), the widest nano shape (14x14, 128) and a
+# ragged one with K != C (13x9, 64 -> 32).
+DW_SHAPES = [(2, 10, 10, 8, 12), (2, 28, 28, 16, 16), (1, 14, 14, 128, 128), (2, 13, 9, 64, 32)]
 CONV_SHAPES = [(2, 12, 12, 8, 16), (2, 28, 28, 12, 16)]
 
 
@@ -68,6 +69,46 @@ def test_dwblock_matches_jax(shape):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     ref = tconv.dwblock_bn_silu_reference(*targs)
     np.testing.assert_allclose(ref.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def _oihw_views(args):
+    """The dwblock arguments with dw and pw as the model passes them: HWIO
+    views (``models/yolox.py::_hwio``) of contiguous OIHW weights."""
+    dw, pw = args[1], args[6]
+    dw_oihw = dw.permute(3, 2, 0, 1).contiguous()  # [C, 1, 3, 3]
+    pw_oihw = pw.permute(3, 2, 0, 1).contiguous()  # [K, C, 1, 1]
+    views = list(args)
+    views[1], views[6] = dw_oihw.permute(2, 3, 1, 0), pw_oihw.permute(2, 3, 1, 0)
+    assert not views[1].is_contiguous() and not views[6].is_contiguous()
+    assert torch.equal(views[1], dw) and torch.equal(views[6], pw)
+    return views
+
+
+@pytest.mark.parametrize("shape", DW_SHAPES[:2])
+def test_dwblock_oihw_views_match_contiguous(shape):
+    """The wrapper gives the same result for the model's permuted OIHW
+    weight views as for contiguous HWIO copies (on the card the kernel reads
+    the views through their strides)."""
+    args = [torch.from_numpy(a) for a in _dw_inputs(shape, 7)]
+    want = tconv.dwblock_bn_silu(*args)
+    got = tconv.dwblock_bn_silu(*_oihw_views(args))
+    assert torch.equal(got, want)
+
+
+def test_kernel_entry_points_match_signatures():
+    """Each csrc/*.cu ``extern "C"`` entry point takes as many parameters as
+    ``ops/kernels.py::SIGNATURES`` gives ctypes: a mismatch would only
+    crash on the card."""
+    import re
+
+    from jolineedle_tpu_torch.ops.kernels import CSRC, SIGNATURES
+
+    found = {}
+    for path in sorted(CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', path.read_text()):
+            assert name == path.stem, (path.name, name)
+            found[name] = len([p for p in params.split(",") if p.strip()])
+    assert found == {name: len(sig) for name, sig in SIGNATURES.items()}
 
 
 @pytest.mark.parametrize("shape", CONV_SHAPES)
@@ -179,6 +220,17 @@ def test_conv_ablation_edits_match_the_tile_source():
             assert src.count(old) == 1, (name, old)
 
 
+def test_dwblock_ablation_edits_match_the_source():
+    """Likewise for the ablation's variants of csrc/dwblock_bn_silu.cu."""
+    from jolineedle_tpu_torch.ops.kernels import CSRC
+    from jolineedle_tpu_torch.scripts.conv_ablation import DW_VARIANTS
+
+    src = (CSRC / "dwblock_bn_silu.cu").read_text()
+    for name, edits in DW_VARIANTS.items():
+        for old, _ in edits:
+            assert src.count(old) == 1, (name, old)
+
+
 def test_cpu_path_does_not_launch():
     """A CPU tensor goes to the plain version and never counts a launch."""
     tconv.reset_counts()
@@ -232,7 +284,26 @@ def cuda():
 # 3x3 kernels multiply it rounded to bf16).
 TOLS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}
 
-GPU_DW = DW_SHAPES + [(3, 14, 14, 128, 128), (2, 13, 9, 64, 32)]
+# (shape, offset, views): the shapes the dwblock tiling (rows x 16 pixels,
+# K slices of 16..128, a TMA halo where x is 16-byte aligned and C * esize a
+# multiple of 16) makes risky: every nano path shape at B = 1; a ragged tile
+# (13 x 9) and an image smaller than a tile (5 x 7); K != C (64 -> 32,
+# 16 -> 40); K = 130 (an odd slice tail); C = 12 and 3 (no TMA; 8-byte and
+# scalar copies); C = 256; 14 x 14 x 128 at B = 3 (two slices or short
+# tiles). offset: x starts that many elements into a flat buffer (1: a bf16
+# x only 2-byte aligned, which takes scalar copies; 8: 16-byte aligned bf16
+# at an offset, still TMA). views: dw and pw as the model's permuted OIHW
+# views, not contiguous HWIO tensors.
+NANO_DW_PATH = [(1, 112, 112, 16, 16), (1, 56, 56, 32, 32), (1, 56, 56, 64, 64),
+                (1, 28, 28, 64, 64), (1, 14, 14, 64, 64), (1, 14, 14, 128, 128)]
+GPU_DW = [(shape, 0, False) for shape in DW_SHAPES + NANO_DW_PATH] + [
+    ((3, 14, 14, 128, 128), 0, False), ((2, 5, 7, 16, 16), 0, False),
+    ((2, 20, 20, 16, 40), 0, False), ((1, 10, 10, 32, 130), 0, False),
+    ((2, 12, 12, 12, 16), 0, False), ((2, 9, 11, 3, 8), 0, False),
+    ((1, 14, 14, 256, 256), 0, False), ((2, 13, 9, 64, 32), 1, False),
+    ((2, 13, 9, 64, 32), 8, False), ((1, 28, 28, 64, 64), 0, True),
+    ((2, 13, 9, 64, 32), 0, True),
+]
 # (shape, offset): the shapes the dense 3x3 tiling (16 pixels wide; K slices
 # of 16/32/64, channel chunks) makes risky: ragged tiles, B = 1, an image
 # smaller than a tile, C = 3 and 12 (no 16-byte pixel), C = 48 at K = 16
@@ -272,12 +343,20 @@ def _gpu_conv_operands(shape, seed, dtype, offset, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", GPU_DW)
-def test_dwblock_kernel_matches_plain(cuda, shape, dtype):
+@pytest.mark.parametrize("shape, offset, views", GPU_DW)
+def test_dwblock_kernel_matches_plain(cuda, shape, offset, views, dtype):
+    """The kernel against the plain version on the caller's float32
+    weights (contiguous HWIO), whatever layout the kernel was handed."""
     args = [torch.from_numpy(a).to(cuda) for a in _dw_inputs(shape, 4)]
     x = args[0].to(dtype)
+    if offset:
+        flat = torch.zeros(x.numel() + offset, dtype=dtype, device=cuda)
+        flat[offset:] = x.flatten()
+        x = flat[offset:].view(x.shape)
+        assert x.is_contiguous() and x.data_ptr() % 16 == (offset * x.element_size()) % 16
+    kernel_args = _oihw_views(args)[1:] if views else args[1:]
     launches = tconv.dwblock_bn_silu.launches
-    got = tconv.dwblock_bn_silu(x, *args[1:])
+    got = tconv.dwblock_bn_silu(x, *kernel_args)
     torch.cuda.synchronize()
     assert tconv.dwblock_bn_silu.launches == launches + 1
     want = tconv.dwblock_bn_silu_reference(x.float(), *args[1:])
