@@ -49,9 +49,13 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    forward+backward, detection, optimizer, by CUDA events), the peak
    memory, and a ``torch.profiler`` busy share of one step.
 
-Phase 3 also holds the flash-attention kernel against its plain version
-at the decoder's shape [16, 3, 21, 16] and a ragged multi-tile [2, 4, 200,
-64], output and gradients, the plain 3x3 conv kernel at the smoke script's
+Phase 3 also holds the flash-attention kernel against its plain versions
+(output, log-sum-exp and gradients) at the decoder's shape [16, 3, 21, 16]
+on the model's strided views of its c_attn output, a ragged multi-tile [2,
+4, 200, 64] and the long-T [128, 4, 128, 64], times each as the wrapper's
+whole call (per launch and back to back), and checks under
+``torch.profiler`` that one call on the model's views is one device
+operation; it holds the plain 3x3 conv kernel at the smoke script's
 default and at the nano stem, and ``conv3x3_bn_silu`` at every dense
 stride-1 3x3 shape of a yolox-s detector at 448 px (rows beside the path,
 outside the ``kernels`` line's totals); phase 4 also compares the REINFORCE
@@ -89,12 +93,15 @@ N_PATCHES = 32  # EVAL_CHUNK of the JAX trainer (jolineedle_tpu/train/trainer.py
 REPS = 20
 HBM_BYTES_PER_S = 3.35e12
 # Peak operation rate by input type: bfloat16 on the tensor cores; float32
-# on the CUDA cores (flash attention does exact float32 FMAs, TF32 is off).
+# on the CUDA cores (the plain versions' float32, TF32 off).
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-# The conv kernels multiply float32 as 3xTF32: three TF32 tensor-core
+# Every kernel multiplies float32 as 3xTF32: three TF32 tensor-core
 # products per float32 product, 495 / 3 TFLOP/s.
 PEAK_3XTF32_OPS_PER_S = 495e12 / 3
 TOLS = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}
+# Flash attention's lse is float32 in both dtypes, from products that are
+# exact in float32 (bf16 inputs) or 3xTF32: held at the float32 limit.
+LSE_TOL = (1e-4, 1e-4)
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 # The flagship serving config (bench.py's flags at full width).
@@ -119,8 +126,13 @@ EXPECTED_PER_CALL = {
 # The train phase: the flagship config at batch 16, gradient accumulation 2.
 TRAIN_B, TRAIN_ACCUM, TRAIN_ITERS, N_LAYER = 16, 2, 4, 3
 # Flash attention: the decoder's teacher-forced shape at TRAIN_B (B, heads,
-# T = STEPS + 1 with the class token, head dim) and a ragged multi-tile one.
-FLASH_SHAPES = [(TRAIN_B, 3, STEPS + 1, 16), (2, 4, 200, 64)]
+# T = STEPS + 1 with the class token, head dim; q, k, v as the model's views
+# of its c_attn output), a ragged multi-tile one and the needle-scale long-T
+# row of the JAX package's sweep (scripts/bench_attention.py:75).
+FLASH_SHAPES = [(TRAIN_B, 3, STEPS + 1, 16), (2, 4, 200, 64), (128, 4, 128, 64)]
+# Device operations of one B = 16 train step when the flash wrapper still
+# copied q, k and v in and o out (PERF.md section 5): 4 copies per layer.
+TRAIN_STEP_OPS_WITH_COPIES = 28_328
 # The plain 3x3 conv: the smoke script's default and the nano stem.
 PLAIN_CONV_SHAPES = [(8, 56, 56, 16, 32), (N_PATCHES, PATCH // 2, PATCH // 2, 12, 16)]
 # The dense 3x3 convs of a wider variant, held and timed beside the path.
@@ -328,37 +340,75 @@ def _report(got, want, dtype, n_bytes, n_ops, kernel_fn, plain_fn, library_fn, p
     }
 
 
-def measure_flash(kattn, shape, dtype, gen):
-    """The flash kernel against its plain version, output and gradients
-    (through the autograd.Function), and its forward's times."""
+def flash_inputs(shape, dtype, gen, model_views):
+    """q, k, v [B, H, T, D] on the card, as leaves of the autograd graph: the
+    model's views of one [B, T, 3C] c_attn output (``models/gpt.py``'s
+    split, reshape and transpose), or three contiguous tensors."""
+    B, H, T, D = shape
+    if model_views:
+        x = torch.randn((B, T, 3 * H * D), generator=gen, device=gen.device).to(dtype)
+        x.requires_grad_()
+        return x, [t.reshape(B, T, H, D).transpose(1, 2) for t in x.split(H * D, dim=-1)]
+    qkv = [torch.randn(shape, generator=gen, device=gen.device).to(dtype).requires_grad_()
+           for _ in range(3)]
+    return qkv, qkv
+
+
+def measure_flash(kattn, shape, dtype, gen, model_views=False):
+    """The flash kernel against its plain versions: output and lse against
+    the plain forward on the same inputs, gradients (through the
+    autograd.Function) against autograd of the float32 plain version; the
+    forward timed as the wrapper's whole call, per launch and back to back."""
     dev = gen.device
-    q, k, v, do = (torch.randn(shape, generator=gen, device=dev) for _ in range(4))
-    qd, kd, vd = (t.to(dtype).requires_grad_() for t in (q, k, v))
+    leaves, (qd, kd, vd) = flash_inputs(shape, dtype, gen, model_views)
+    do = torch.randn(shape, generator=gen, device=dev)
     got = kattn.flash_attention(qd, kd, vd)
     got_grads = torch.autograd.grad(got, (qd, kd, vd), do.to(dtype))
     qf, kf, vf = (t.detach().float().requires_grad_() for t in (qd, kd, vd))
     want = kattn.flash_attention_reference(qf, kf, vf)
     want_grads = torch.autograd.grad(want, (qf, kf, vf), do.to(dtype).float())
+    x = [t.detach() for t in (qd, kd, vd)]
+    o, lse = kattn.flash_attention_launch(*x)
+    want_o, want_lse = kattn.flash_attention_forward_reference(*x)
     torch.cuda.synchronize()
     atol, rtol = TOLS[dtype]
+    torch.testing.assert_close(o.float(), want_o.float(), atol=atol, rtol=rtol, msg="o")
+    torch.testing.assert_close(lse, want_lse, atol=LSE_TOL[0], rtol=LSE_TOL[1], msg="lse")
     grad_err = 0.0
     for name, g, w in zip("qkv", got_grads, want_grads):
         torch.testing.assert_close(g.float(), w, atol=atol, rtol=rtol, msg=f"d{name}")
         grad_err = max(grad_err, (g.float() - w).abs().max().item())
 
     B, H, T, D = shape
-    x = [t.detach() for t in (qd, kd, vd)]
     pairs = B * H * T * (T + 1) // 2  # causal (query, key) pairs
     n_bytes = 4 * B * H * T * D * qd.element_size() + 4 * B * H * T  # q, k, v, o; lse
     n_ops = 4 * D * pairs  # QK^T and PV on the visible pairs
-    o, lse = kattn.flash_attention_launch(*x)
     r = _report(got, want, dtype, n_bytes, n_ops,
-                lambda: kattn.flash_attention_launch(*x),
+                lambda: kattn.flash_attention(*x),
                 lambda: kattn.flash_attention_reference(*x),
-                lambda: F.scaled_dot_product_attention(*x, is_causal=True))
+                lambda: F.scaled_dot_product_attention(*x, is_causal=True),
+                peak=PEAK_3XTF32_OPS_PER_S if dtype == torch.float32 else None)
+    r["back_to_back_ms"] = back_to_back_ms(lambda: kattn.flash_attention(*x))
+    r["library_back_to_back_ms"] = back_to_back_ms(
+        lambda: F.scaled_dot_product_attention(*x, is_causal=True))
+    r["lse_max_abs_err"] = (lse - want_lse).abs().max().item()
     r["grad_max_abs_err"] = grad_err
     r["backward_ms"] = median_ms(lambda: kattn.flash_attention_backward(*x, o, lse, do.to(dtype)))
     return r
+
+
+def flash_device_ops(kattn, gen):
+    """One ``flash_attention`` call on the model's views at the decoder's
+    shape, with gradients on (as in the train step), must run exactly one
+    device operation: no copy in, none out."""
+    shape = FLASH_SHAPES[0]
+    _, (q, k, v) = flash_inputs(shape, torch.bfloat16, gen, model_views=True)
+    kattn.flash_attention(q, k, v)  # warm
+    n = len(device_spans(lambda: kattn.flash_attention(q, k, v).transpose(1, 2)
+                         .reshape(shape[0], shape[2], shape[1] * shape[3])))
+    require(n == 1, f"flash_attention on the model's views ran {n} device operations, not 1")
+    say(f"flash_attention on the model's views {list(shape)} bfloat16 (with the caller's"
+        f" transpose and reshape): {n} device operation")
 
 
 def measure_plain_conv(kconv, B, H, W, C, K, dtype, gen):
@@ -451,14 +501,19 @@ def new_kernel_phase(port, seed):
     rows = []
     for shape in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            r = measure_flash(port.kattn, shape, dtype, gen)
-            r.update(name="flash_attention", shape=list(shape), dtype=DTYPE_NAMES[dtype])
+            views = shape == FLASH_SHAPES[0]
+            r = measure_flash(port.kattn, shape, dtype, gen, model_views=views)
+            r.update(name="flash_attention", shape=list(shape), dtype=DTYPE_NAMES[dtype],
+                     inputs="the model's c_attn views" if views else "contiguous")
             rows.append(r)
-            say(f"kernel flash_attention {list(shape)} {DTYPE_NAMES[dtype]}: {r['ms']:.4f} ms"
-                f" (backward, PyTorch ops: {r['backward_ms']:.4f} ms), plain"
-                f" {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound"
-                f" {r['bound_ms']:.6f} ms ({r['bound_by']}), max |err| {r['max_abs_err']:.3g},"
+            say(f"kernel flash_attention {list(shape)} {DTYPE_NAMES[dtype]} ({r['inputs']}):"
+                f" {r['ms']:.4f} ms (back to back {r['back_to_back_ms']:.4f}; backward,"
+                f" PyTorch ops: {r['backward_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, SDPA"
+                f" {r['library_ms']:.4f} ms (back to back {r['library_back_to_back_ms']:.4f}),"
+                f" bound {r['bound_ms']:.6f} ms ({r['bound_by']}),"
+                f" max |err| {r['max_abs_err']:.3g}, lse {r['lse_max_abs_err']:.3g},"
                 f" gradients {r['grad_max_abs_err']:.3g}")
+    flash_device_ops(port.kattn, gen)
     for shape in PLAIN_CONV_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             r = measure_plain_conv(port.kconv, *shape, dtype, gen)
@@ -500,13 +555,14 @@ def kernels_json(rows, new_rows, wide_rows, launches, by_path):
             timed_as = (f"one teacher-forced forward ({N_LAYER} launches) at {first['shape']},"
                         " bfloat16" if name == "flash_attention"
                         else f"one call at the smoke default {first['shape']}, bfloat16")
-            extra = ("grad_max_abs_err", "backward_ms") if name == "flash_attention" else ()
+            extra = (("inputs", "back_to_back_ms", "library_back_to_back_ms", "lse_max_abs_err",
+                      "grad_max_abs_err", "backward_ms") if name == "flash_attention" else ())
         total = lambda key: sum(r[key] * n for r, n in main)
         by = Counter()
         for r, n in main:
             by[r["bound_by"]] += r["bound_ms"] * n
         totals = ({"back_to_back_ms": total("back_to_back_ms")}
-                  if name == "dwblock_bn_silu" else {})
+                  if name in ("dwblock_bn_silu", "flash_attention") else {})
         out.append({
             "name": name,
             "route": "cuda",
@@ -781,12 +837,9 @@ PORT_KERNEL_SYMBOLS = {
 }
 
 
-def profile_run(what, untraced_ms, fn, top=8, unit=("rollout step", STEPS)):
-    """``fn`` once under ``torch.profiler``: the device's busy time (the
-    union of the traced kernel and copy intervals) against ``untraced_ms``,
-    the same work's wall time without the profiler (which adds host time of
-    its own), the device operations per ``unit``, the ``top`` kernels by
-    device time, and the bf16 port kernels' totals."""
+def device_spans(fn) -> list:
+    """(start, end, name) of every device operation (kernels, copies,
+    fills) that ``fn`` runs, by ``torch.profiler``, in start order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -794,11 +847,21 @@ def profile_run(what, untraced_ms, fn, top=8, unit=("rollout step", STEPS)):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+
+
+def profile_run(what, untraced_ms, fn, top=8, unit=("rollout step", STEPS)):
+    """``fn`` once under ``torch.profiler``: the device's busy time (the
+    union of the traced kernel and copy intervals) against ``untraced_ms``,
+    the same work's wall time without the profiler (which adds host time of
+    its own), the device operations per ``unit``, the ``top`` kernels by
+    device time, and the bf16 port kernels' totals. Returns the device
+    operations per ``unit`` (None when nothing was traced)."""
+    spans = device_spans(fn)
     if not spans:
         say(f"profile {what}: the profiler traced no device time; busy share not measured")
-        return
+        return None
     busy_us, end = 0.0, -math.inf
     by_name = defaultdict(lambda: [0, 0.0])
     for s, e, name in spans:
@@ -817,6 +880,7 @@ def profile_run(what, untraced_ms, fn, top=8, unit=("rollout step", STEPS)):
         if hits:
             say(f"  port kernel {kernel}: {sum(us for _, us in hits) / 1e3:.3f} ms in"
                 f" {sum(n for n, _ in hits)} launches")
+    return len(spans) / unit[1]
 
 
 # --- phase 6: the smoke-conv script ------------------------------------------------
@@ -936,8 +1000,12 @@ def train_phase(port, seed):
         say(f"train step B={TRAIN_B} ({'update' if i else 'accumulate'}): {step_ms:.2f} ms wall;"
             " device-clock phases " + ", ".join(f"{k} {v:.2f} ms" for k, v in phases.items())
             + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    profile_run(f"train step B={TRAIN_B}", step_ms, lambda: trainer.train_step(batch),
-                unit=("train step", 1))
+    ops = profile_run(f"train step B={TRAIN_B}", step_ms, lambda: trainer.train_step(batch),
+                      unit=("train step", 1))
+    if ops is not None:
+        say(f"train step B={TRAIN_B}: {ops:.0f} device operations, against"
+            f" {TRAIN_STEP_OPS_WITH_COPIES:,} when the flash wrapper copied q, k, v and o"
+            f" ({ops - TRAIN_STEP_OPS_WITH_COPIES:+.0f}; {-4 * N_LAYER} expected)")
 
     # One resumed iteration from the checkpoint on disk.
     run_dir = trainer.checkpoint_dir

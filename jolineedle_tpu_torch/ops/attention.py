@@ -8,9 +8,11 @@ The counterpart of ``jolineedle_tpu/ops/attention.py``:
   in float32 and casts the probabilities to q's dtype before the PV product;
 - ``flash_attention`` replaces the Pallas ``flash_attention``
   (``attention.py:101``, kernel ``_flash_kernel``) with ``csrc/
-  flash_attention.cu``. Like the Pallas kernel it keeps the probabilities in
-  float32 and rounds the output once to q's dtype: in float32 the two
-  versions agree to ~1e-6, in bfloat16 by less than an output ulp.
+  flash_attention.cu``: both products on the tensor cores, the online
+  softmax in float32, and, in bfloat16, the probabilities rounded to q's
+  dtype before the PV product (as the jnp oracle rounds them); the output is
+  rounded once to q's dtype. ``flash_attention_forward_reference`` is its
+  plain version, with the same rounding.
 
 ``causal_attention`` is what the teacher-forced decoder calls: on a CPU
 tensor the plain version, on a CUDA tensor the kernel (or it raises: there is
@@ -25,6 +27,7 @@ The wrapper counts, as plain integers on the function object, ``calls``
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +36,10 @@ from .kernels import kernel
 NEG_INF = -1e30
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 KERNEL_HEAD_DIMS = (16, 32, 64)
+#: The kernel's blocks: 4 warps of 16 query rows; T up to SHORT_T takes the
+#: short regime (heads packed per block, whole K/V loaded once), longer T
+#: one 64-row q tile per block.
+WARPS, WARP_ROWS, SHORT_T, Q_TILE = 4, 16, 64, 64
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -52,15 +59,17 @@ causal_attention_reference = flash_attention_reference
 
 
 def flash_attention_forward_reference(q, k, v):
-    """The kernel's two outputs in float32 PyTorch ops: the attention (in
-    q's dtype, probabilities kept in float32 as the kernel keeps them) and
-    the per-row log-sum-exp of the scaled scores, ``[B, H, T]``."""
+    """The kernel's two outputs in float32 PyTorch ops, with its rounding:
+    the attention in q's dtype (the scale applied to the float32 scores; in
+    bfloat16 the probabilities rounded to bfloat16 before the PV product)
+    and the per-row natural-log log-sum-exp of the scaled scores,
+    ``[B, H, T]`` float32."""
     d, t = q.shape[-1], q.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
     causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
     s = s.masked_fill(~causal, NEG_INF)
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
+    p = torch.exp(s - lse[..., None]).to(q.dtype).float()
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype), lse
 
 
@@ -91,8 +100,6 @@ def flash_attention_backward(q, k, v, o, lse, do):
 
 def _check_launch(q, k, v):
     """Refuse what the kernel does not take, before a pointer is passed."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: q lies on {q.device}; the kernel runs on CUDA")
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash_attention: q is {q.dtype}; the kernel takes float32 or bfloat16")
     if q.ndim != 4:
@@ -107,20 +114,81 @@ def _check_launch(q, k, v):
         raise ValueError(
             f"flash_attention: head dim {q.shape[-1]}; the kernel takes {KERNEL_HEAD_DIMS}"
         )
+    if q.numel() == 0:
+        raise ValueError(f"flash_attention: empty input {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1:
+            raise ValueError(
+                f"flash_attention: {name}'s head dim has stride {t.stride(-1)}; the kernel"
+                " reads D contiguous (no copy is made)"
+            )
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: q lies on {q.device}; the kernel runs on CUDA")
+
+
+class FlashPlan(NamedTuple):
+    """How the kernel covers ``bh`` heads of ``t`` rows: ``heads_per_block``
+    heads of ``warps_per_head`` 16-row warps each in the short regime (0 at
+    long T, where a block is one 64-row q tile of 4 warps), and ``grid``
+    blocks."""
+
+    short: bool
+    heads_per_block: int
+    warps_per_head: int
+    grid: int
+
+
+def launch_plan(bh: int, t: int) -> FlashPlan:
+    """The launch of ``csrc/flash_attention.cu`` for ``bh`` = B * H heads of
+    ``t`` rows. Short T (at most ``SHORT_T``): ceil(t / 16) warps per head,
+    as many heads per 4-warp block as fit. Long T: one block per (head,
+    64-row q tile), the longest q tiles (the last) first."""
+    if t <= SHORT_T:
+        wph = -(-t // WARP_ROWS)
+        hpb = WARPS // wph
+        return FlashPlan(True, hpb, wph, -(-bh // hpb))
+    return FlashPlan(False, 0, WARPS, -(-t // Q_TILE) * bh)
+
+
+def _vector_bytes(tensors, esize: int) -> int:
+    """The widest copy (16, 8 or 4 bytes) that every tensor's address and its
+    (b, h, t) strides in bytes allow (dims of size 1 aside); else one
+    element."""
+    for v in (16, 8, 4):
+        if all(
+            t.data_ptr() % v == 0
+            and all(s * esize % v == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+            for t in tensors
+        ):
+            return v
+    return esize
+
+
+def flash_attention_args(q, k, v):
+    """The output tensors and the C entry point's arguments for checked
+    [B, H, T, D] q, k, v (D contiguous, any (b, h, t) strides): o is a
+    [B, H, T, D] view of [B, T, H, D] storage, so that the caller's
+    ``transpose(1, 2).reshape(B, T, H * D)`` is free; lse is [B, H, T]
+    float32. Returns (o, lse, args without the stream)."""
+    B, H, T, D = q.shape
+    o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    plan = launch_plan(B * H, T)
+    strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        B, H, T, D, *strides, _vector_bytes((q, k, v), q.element_size()),
+        plan.heads_per_block, plan.grid, int(q.dtype == torch.bfloat16), 1.0 / D**0.5,
+    )
+    return o, lse, args
 
 
 def flash_attention_launch(q, k, v):
-    """The kernel alone on checked CUDA tensors: returns (o [B, H, T, D] in
-    q's dtype, lse [B, H, T] float32)."""
-    B, H, T, D = q.shape
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    o = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    err = kernel("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        B * H, T, D, int(q.dtype == torch.bfloat16), 1.0 / D**0.5,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    """The kernel alone on checked CUDA tensors, read through their strides:
+    one device operation. Returns (o [B, H, T, D] in q's dtype, a view of
+    [B, T, H, D] storage; lse [B, H, T] float32)."""
+    o, lse, args = flash_attention_args(q, k, v)
+    err = kernel("flash_attention")(*args, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
     flash_attention.launches += 1
@@ -129,7 +197,7 @@ def flash_attention_launch(q, k, v):
 
 class FlashAttention(torch.autograd.Function):
     """Causal attention whose forward is the flash kernel (or, for CPU
-    tensors, its float32 plain form ``flash_attention_forward_reference``)
+    tensors, its plain form ``flash_attention_forward_reference``)
     and whose backward is :func:`flash_attention_backward`, PyTorch ops on
     the saved q, k, v, o and log-sum-exp. The Pallas kernel has no backward
     either: the JAX package differentiates its jnp attention with XLA. The
@@ -158,6 +226,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     in VMEM, T a multiple of the block). On a CPU tensor it computes
     :func:`flash_attention_reference`; on a CUDA tensor it launches
     ``csrc/flash_attention.cu`` through :class:`FlashAttention` or raises.
+    The kernel reads q, k and v through their strides (D contiguous, else it
+    raises) and returns a view of [B, T, H, D] storage: one device operation
+    for the model's transposed ``c_attn`` views, in and out.
     """
     flash_attention.calls += 1
     if q.device.type == "cpu":

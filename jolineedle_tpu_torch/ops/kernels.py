@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: C signature of each kernel library's entry point.
 SIGNATURES = {
     # x, dw, gamma1, beta1, mean1, var1, pw, gamma2, beta2, mean2, var2, out,
@@ -37,8 +37,9 @@ SIGNATURES = {
     "conv3x3_bn_silu": [_P] * 5 + [_I] * 6 + [_P],
     # x, w[9C,K], out, B, H, W, C, K, is_bf16, stream
     "conv3x3": [_P] * 3 + [_I] * 6 + [_P],
-    # q, k, v, o, lse[BH,T], BH, T, D, is_bf16, scale, stream
-    "flash_attention": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # q, k, v, o, lse[B,H,T], B, H, T, D, (b, h, t) strides of q, k, v, o,
+    # vec, heads_per_block, grid, is_bf16, scale, stream
+    "flash_attention": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_I] * 4 + [_F, _P],
 }
 
 _loaded: Dict[str, ctypes._CFuncPtr] = {}
