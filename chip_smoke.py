@@ -17,11 +17,15 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    plain version and a cuDNN yardstick (``F.conv2d`` with the same BN and
    SiLU ops, which the port never calls) beside the bound. dwblock is timed
    as the wrapper's whole call on the model's arguments (one launch: the
-   kernel folds BN and reads the OIHW weight views through their strides);
+   kernel folds BN and reads the OIHW weight views through their strides).
+   The supervised eval's largest calls are held too, in bfloat16: the
+   embedder's shapes at N = 320 (the teacher-forced eval's 16 x 20
+   patches) and the detector's at N = 240 (12 eval episodes of 20 patches);
 4. reference: the float32 model on the card against the same model on the
    CPU (the plain versions of the kernels) on small inputs: the detector,
    the teacher-forced decoder and a greedy rollout (with a sharpened action
-   head, so that the episodes walk);
+   head, so that the episodes walk); then the REINFORCE and the supervised
+   losses with their gradients (below);
 5. serve: the flagship config (gpt-nano, yolox-nano embedder and detector,
    concat embeddings, sinusoidal positions, grid position, STOP, 448 px
    patches, 20 steps, bfloat16) with weights made from ``--seed`` written
@@ -47,7 +51,21 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    teacher-forced forward) and no conv launch in the differentiated
    forwards. Then two more steps give the phase times (rollout, loss
    forward+backward, detection, optimizer, by CUDA events), the peak
-   memory, and a ``torch.profiler`` busy share of one step.
+   memory, and a ``torch.profiler`` busy share of one step;
+8. supervised: the train CLI with ``--training-mode supervised`` on the
+   same toy dataset, batch 16, accumulation 2, dropout 0.1: 4 iterations
+   (``--max-iters 5``), a test of 16 sampled test images after the last, the
+   final test, then a resumed run of one iteration. The losses and the test
+   metrics must be finite; both optimizer groups and the BN statistics of
+   the embedder and of the detector must move; the checkpoint must track
+   ``map``. The launch counters must read exactly what
+   ``sup_test_launches`` derives from the code: per step 3 flash launches
+   and no conv launch (every conv of a train step runs under autograd);
+   per test the conv kernels of the eval rollouts, of the eval detections
+   and of the teacher-forced eval's embedder and detector, and its 3 flash
+   launches per batch of 16 images. Then two more steps give the phase
+   times (upload, decision, detection, optimizer), the peak memory and a
+   ``torch.profiler`` busy share.
 
 Phase 3 also holds the flash-attention kernel against its plain versions
 (output, log-sum-exp and gradients) at the decoder's shape [16, 3, 21, 16]
@@ -59,7 +77,9 @@ operation; it holds the plain 3x3 conv kernel at the smoke script's
 default and at the nano stem, and ``conv3x3_bn_silu`` at every dense
 stride-1 3x3 shape of a yolox-s detector at 448 px (rows beside the path,
 outside the ``kernels`` line's totals); phase 4 also compares the REINFORCE
-loss and its gradients on the card with the CPU. The dense 3x3 kernels take
+loss and its gradients on the card with the CPU, and the supervised loss
+(CE + SimOTA, float32, dropout 0, un-augmented patches), its gradients and
+the BN statistics its two train-mode forwards leave behind. The dense 3x3 kernels take
 their filter as the wrappers prepare it (``conv3x3_filter``: in x's dtype,
 so rounded to bf16 in bf16); their plain versions run on the caller's
 float32 filter, so the bf16 tolerance also holds that rounding.
@@ -105,14 +125,14 @@ LSE_TOL = (1e-4, 1e-4)
 DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 # The flagship serving config (bench.py's flags at full width).
-PATCH, STEPS, GRID = 448, 20, 6
+PATCH, STEPS, GRID, MAX_DET_PATCHES = 448, 20, 6, 4
 FLAGSHIP = [
     "--training-mode", "reinforce", "--dataset-dir", "/nonexistent",
     "--model-type", "gpt-nano", "--image-processor", "yolox-nano",
     "--gpt-backbone", "yolox-nano", "--concat-embeddings", "--decoder-pos-encoding",
     "--use-positional-embedding", "--enable-stop", "--max-seq-len", str(STEPS),
     "--patch-size", str(PATCH), "--minimum-image-size", "0",
-    "--batch-size", str(N_PATCHES), "--dropout", "0.0", "--max-det-patches", "4",
+    "--batch-size", str(N_PATCHES), "--dropout", "0.0", "--max-det-patches", str(MAX_DET_PATCHES),
     "--max-boxes", "4", "--devices", "0", "--compute-dtype", "bfloat16",
 ]
 # Per call of the embedder (one per rollout step) and of the detector, the
@@ -125,6 +145,15 @@ EXPECTED_PER_CALL = {
 
 # The train phase: the flagship config at batch 16, gradient accumulation 2.
 TRAIN_B, TRAIN_ACCUM, TRAIN_ITERS, N_LAYER = 16, 2, 4, 3
+# The supervised train phase: the same, with dropout on and a test of
+# SUP_TEST_IDS sampled test images after the last iteration (besides the
+# final test on the whole test set). Its eval batches: the teacher-forced
+# eval embeds TRAIN_B x STEPS patches in one call and detects on TRAIN_B x
+# MAX_DET_PATCHES; the autoregressive eval's detections go EVAL_DET_ROWS
+# episodes of STEPS patches at a time (Trainer.DET_EVAL_PATCHES // STEPS).
+SUP_TEST_IDS, EVAL_CHUNK, DET_EVAL_PATCHES = 16, 32, 256
+EVAL_DET_ROWS = min(EVAL_CHUNK, DET_EVAL_PATCHES // STEPS)
+SUP_EMBED_N, SUP_DET_N = TRAIN_B * STEPS, EVAL_DET_ROWS * STEPS
 # Flash attention: the decoder's teacher-forced shape at TRAIN_B (B, heads,
 # T = STEPS + 1 with the class token, head dim; q, k, v as the model's views
 # of its c_attn output), a ragged multi-tile one and the needle-scale long-T
@@ -452,13 +481,17 @@ KERNELS = {
 
 def kernel_phase(kconv, shapes, seed):
     """Every (kernel, shape) of the path in both dtypes at N = 32 patches,
-    and each dwblock shape of the B = 1 request (N = 1) in bfloat16; returns
-    rows."""
+    each dwblock shape of the B = 1 request (N = 1) in bfloat16, and the
+    supervised eval's largest calls in bfloat16: the embedder's shapes at
+    N = SUP_EMBED_N (the teacher-forced eval's B x T patches), the
+    detector's at N = SUP_DET_N (a chunk of eval episodes); returns rows."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     per_call = shapes["embedder"] + shapes["detector"]
     runs = [(key, dtype, N_PATCHES) for key in sorted(per_call)
             for dtype in (torch.float32, torch.bfloat16)]
     runs += [(key, torch.bfloat16, 1) for key in sorted(per_call) if key[0] == "dwblock_bn_silu"]
+    runs += [(key, torch.bfloat16, SUP_EMBED_N) for key in sorted(shapes["embedder"])]
+    runs += [(key, torch.bfloat16, SUP_DET_N) for key in sorted(shapes["detector"])]
     rows = []
     for (name, H, W, C, K), dtype, n in runs:
         r = KERNELS[name]["measure"](kconv, H, W, C, K, dtype, gen, n=n)
@@ -531,7 +564,8 @@ def kernels_json(rows, new_rows, wide_rows, launches, by_path):
     shape in ``shapes``. Flash attention: one teacher-forced forward of the
     train step (3 launches at the decoder's shape, bfloat16). The plain 3x3
     conv: one call at the smoke script's default (bfloat16). dwblock's rows
-    at N = 1 (the B = 1 request) are in ``shapes``, outside the totals.
+    at N = 1 (the B = 1 request) and the fused blocks' rows at the
+    supervised eval's N are in ``shapes``, outside the totals.
     ``launches``
     sums every path's count; ``launches_by_path`` splits it. The wide
     variant's rows go under conv3x3_bn_silu's ``wide_variant_shapes``,
@@ -637,8 +671,10 @@ def reference_phase(model_config, actions_info, state, seed):
 
 def rollout_reference(models, train_config, seed):
     """A greedy rollout on the card against the CPU, step for step up to the
-    first step whose top-2 logit gap is within four times the logit
-    tolerance (a near-tie may flip the argmax)."""
+    first step whose action differs, which must be a near-tie (a top-2 logit
+    gap within four times the logit tolerance may flip the argmax): logits,
+    actions and positions until then. Near-ties whose action agrees are
+    compared through."""
     from jolineedle_tpu_torch.train.rollout import eval_rollout, to_numpy
 
     rng = np.random.default_rng(seed + 1)
@@ -650,14 +686,19 @@ def rollout_reference(models, train_config, seed):
           for d, m in models.items()}
     top2 = np.sort(ro["cpu"]["logits"], axis=-1)[..., -2:]
     margin = 4 * (REF_TOL["atol"] + REF_TOL["rtol"] * np.abs(top2[..., 1]))
-    near = np.nonzero(((top2[..., 1] - top2[..., 0]) < margin).any(0))[0]
-    t_end = int(near[0]) if len(near) else STEPS
+    near = (top2[..., 1] - top2[..., 0]) < margin  # [B, T]
+    differ = ro["cuda"]["actions"] != ro["cpu"]["actions"]
+    flips = np.nonzero(differ.any(0))[0]
+    t_end = int(flips[0]) if len(flips) else STEPS
+    require(t_end == STEPS or near[differ[:, t_end], t_end].all(),
+            f"reference rollout: the card's action differs from the CPU's at step {t_end}"
+            " without a near-tie")
     np.testing.assert_allclose(ro["cuda"]["logits"][:, : t_end + 1],
                                ro["cpu"]["logits"][:, : t_end + 1], **REF_TOL)
-    np.testing.assert_array_equal(ro["cuda"]["actions"][:, :t_end], ro["cpu"]["actions"][:, :t_end])
     np.testing.assert_array_equal(ro["cuda"]["positions"][:, : t_end + 1],
                                   ro["cpu"]["positions"][:, : t_end + 1])
-    say(f"reference: greedy rollout on the card matches the CPU for {t_end} of {STEPS} steps")
+    say(f"reference: greedy rollout on the card matches the CPU for {t_end} of {STEPS} steps"
+        f" ({int(near[:, :t_end].any(0).sum())} of them near-ties)")
 
 
 def train_reference(models, state, train_config, seed):
@@ -714,6 +755,87 @@ def train_reference(models, state, train_config, seed):
     say(f"reference: REINFORCE loss {losses['cuda']:.6f} (CPU {losses['cpu']:.6f}) and its"
         f" {len(grads['cpu'])} gradients match the CPU (the worst at {worst:.2f} of its limit);"
         f" detection loss {det_loss['cuda']:.4f} (CPU {det_loss['cpu']:.4f})")
+
+
+def supervised_batch(rng):
+    """A fixed supervised batch as ``build_supervised_batch`` shapes it, made
+    with numpy: 2 episodes of 3 steps with live prefixes, STOP among the
+    labels, 2 x MAX_DET_PATCHES detector patches of which one is padding
+    (zero pixels, not valid), a box in each valid one."""
+    B, T, K = 2, 3, MAX_DET_PATCHES
+    masks = np.ones((B, T), np.float32)
+    masks[1, T - 1] = 0
+    ref = rng.integers(0, 9, (B, T))
+    ref[0, 1] = 8  # STOP
+    valid = np.ones((B, K), bool)
+    valid[-1, -1] = False
+    det = rng.integers(0, 256, (B, K, PATCH, PATCH, 3), dtype=np.uint8)
+    det[~valid] = 0
+    boxes = np.zeros((B, K, 4, 6), np.float32)
+    boxes[:, :, 0] = [0, 40, 60, 300, 200, 1]
+    boxes[~valid] = 0
+    return {
+        "patches": rng.integers(0, 256, (B, T, PATCH, PATCH, 3), dtype=np.uint8),
+        "current_actions": rng.integers(0, 9, (B, T)),
+        "class_id": np.zeros((B,), np.int64),
+        "positions": rng.integers(0, GRID, (B, T, 2)),
+        "reference_actions": ref,
+        "masks": masks,
+        "patches_yolox": det,
+        "bboxes_yolox": boxes,
+        "yolox_valid": valid,
+    }
+
+
+def supervised_reference(models, state, seed):
+    """The supervised loss on the card against the CPU, on one fixed,
+    un-augmented batch (2 episodes of 3 steps, 2 x 4 detector patches; the
+    float32 model, dropout 0, a STOP class weight of 2): the decision CE of
+    the train-mode teacher-forced forward plus the train-mode detector's
+    SimOTA loss (``train/supervised.py``'s ``decision_loss`` then
+    ``detection_loss``), held as the REINFORCE check holds its loss and
+    gradients; and the BN running statistics both forwards leave behind
+    (the embedder's, then the detector's, updated in place), within
+    ``REF_TOL``."""
+    from jolineedle_tpu_torch.train.supervised import decision_loss, detection_loss
+
+    batch = supervised_batch(np.random.default_rng(seed + 3))
+    weight = torch.ones(9)
+    weight[8] = 2.0
+    losses, grads, stats = {}, {}, {}
+    for d, m in models.items():
+        m.load_state_dict(state)  # the REINFORCE check moved the detector's statistics
+        m.zero_grad(set_to_none=True)
+        dev = {k: torch.from_numpy(v).to(m.device) for k, v in batch.items()}
+        unit = lambda x: x.float() / 255.0  # the augmentation's output range
+        al, _ = decision_loss(m, unit(dev["patches"]), dev, weight.to(m.device))
+        ylo = detection_loss(m, unit(dev["patches_yolox"]), dev)
+        loss = al + ylo["total_loss"]
+        loss.backward()
+        losses[d] = (loss.item(), al.item(), ylo["total_loss"].item())
+        grads[d] = {n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                    if p.grad is not None}
+        stats[d] = {k: v.detach().cpu() for k, v in m.state_dict().items() if "running_" in k}
+    (loss_c, al_c, yl_c), (loss_h, al_h, yl_h) = losses["cuda"], losses["cpu"]
+    require(abs(loss_c - loss_h) <= 1e-4 + 1e-4 * abs(loss_h),
+            f"supervised reference: loss {losses['cuda']} on the card, {losses['cpu']} on the CPU")
+    require(grads["cuda"].keys() == grads["cpu"].keys(), "supervised reference: gradient keys")
+    worst = 0.0
+    for n, want in grads["cpu"].items():
+        err = (grads["cuda"][n] - want).abs().max().item()
+        limit = 1e-3 * want.abs().max().item() + 1e-6
+        require(err <= limit, f"supervised reference: d{n} off by {err} (limit {limit})")
+        worst = max(worst, err / limit)
+    moved = 0
+    for k, want in stats["cpu"].items():
+        torch.testing.assert_close(stats["cuda"][k], want, **REF_TOL, msg=k)
+        moved += not torch.equal(want, state[k].cpu())
+    require(moved == len(stats["cpu"]), f"supervised reference: {len(stats['cpu']) - moved}"
+            " BN statistics did not move")
+    say(f"reference: supervised loss {loss_c:.6f} (CPU {loss_h:.6f}; CE {al_c:.6f}, SimOTA"
+        f" {yl_c:.4f}) and its {len(grads['cpu'])} gradients match the CPU (the worst at"
+        f" {worst:.2f} of its limit); the {moved} BN statistics the two forwards updated"
+        f" match within {REF_TOL}")
 
 
 # --- phase 5: serve ----------------------------------------------------------------
@@ -913,9 +1035,9 @@ def train_flags(data_dir, work_dir, seed):
     ]
 
 
-def train_phase(port, seed):
-    """The train CLI at the flagship config on a toy dataset of 2688 px
-    images; returns the launch counts of its runs (train, then resume)."""
+def toy_dataset(port, seed) -> Path:
+    """The port's toy generator: 8 + 2 images of 2688 px (a 6 x 6 grid of
+    448 px patches), the data of both train phases."""
     root = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(root, ignore_errors=True)
     start = time.perf_counter()
@@ -923,7 +1045,14 @@ def train_phase(port, seed):
                               seed=seed, box_size=(48, 200))
     say(f"train: toy dataset of 8 + 2 images {GRID * PATCH}x{GRID * PATCH} in"
         f" {time.perf_counter() - start:.1f} s")
-    flags = train_flags(root / "toy", root / "out", seed)
+    return root / "toy"
+
+
+def train_phase(port, seed, toy):
+    """The train CLI (REINFORCE) at the flagship config on the toy dataset;
+    returns the launch counts of its runs (train, then resume)."""
+    root = toy.parent
+    flags = train_flags(toy, root / "out", seed)
     train_config, model_config = port.tconfig.args_to_config(port.tconfig.get_args(flags))
     torch.manual_seed(seed)  # as the CLI seeds the model's init
     init = port.GPT.from_config(model_config, port.get_actions_info(train_config),
@@ -1023,6 +1152,163 @@ def train_phase(port, seed):
     return Counter(main_counts) + Counter(resume_counts)
 
 
+def sup_test_launches(n_ids: int) -> dict:
+    """The kernel launches of one supervised ``test()`` on ``n_ids`` test
+    images of one shape, from ``train/supervised.py`` and
+    ``train/trainer.py``: two starts per image (multistart), so ``2 n_ids``
+    rollout rows in chunks of at most EVAL_CHUNK, each chunk STEPS - 1 steps
+    of one embedder call; their detections in chunks of EVAL_DET_ROWS
+    episodes, one detector call each; and per TRAIN_B images the
+    teacher-forced eval's one forward (an embedder call and N_LAYER flash
+    launches) and one detector call."""
+    rows = 2 * n_ids
+    sup_batches = math.ceil(n_ids / TRAIN_B)
+    calls = {"embedder": math.ceil(rows / EVAL_CHUNK) * (STEPS - 1) + sup_batches,
+             "detector": math.ceil(rows / EVAL_DET_ROWS) + sup_batches}
+    out = {k: sum(calls[c] * EXPECTED_PER_CALL[c][k] for c in calls)
+           for k in EXPECTED_PER_CALL["embedder"]}
+    out["flash_attention"] = N_LAYER * sup_batches
+    return out
+
+
+def sup_train_phase(port, seed, toy):
+    """The train CLI with ``--training-mode supervised`` at the flagship
+    config (dropout 0.1) on the toy dataset: TRAIN_ITERS iterations (the
+    supervised loop runs ``--max-iters`` - 1), a test of SUP_TEST_IDS
+    sampled test images after the last, the final test on the whole test
+    set, then a resumed run of one iteration and its final test. Returns
+    the launch counts of both runs."""
+    from jolineedle_tpu_torch.train.batching import build_supervised_batch
+    from jolineedle_tpu_torch.train.supervised import TRAIN_KEYS
+
+    root = toy.parent
+    flags = train_flags(toy, root / "out", seed)
+    for flag, value in (("--training-mode", "supervised"), ("--dropout", "0.1"),
+                        ("--env-name", "sup"), ("--max-iters", TRAIN_ITERS + 1),
+                        ("--test-every", TRAIN_ITERS), ("--test-samples", SUP_TEST_IDS)):
+        flags[flags.index(flag) + 1] = str(value)
+    train_config, model_config = port.tconfig.args_to_config(port.tconfig.get_args(flags))
+    torch.manual_seed(seed)  # as the CLI seeds the model's init
+    init = port.GPT.from_config(model_config, port.get_actions_info(train_config),
+                                device="cpu").state_dict()
+    per_step = {"flash_attention": N_LAYER}
+
+    reset_launches(port)
+    start = time.perf_counter()
+    trainer = port.train_main(port.tconfig.get_args(flags))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    main_counts = read_launches(port)
+    n_test = len(trainer.test_dataset)
+    metrics = {k: float(v) for k, v in trainer.last_train_metrics.items()}
+    say(f"supervised train: {TRAIN_ITERS} iterations of B={TRAIN_B} (accumulation"
+        f" {TRAIN_ACCUM}), a test of {SUP_TEST_IDS} images and the final test in"
+        f" {seconds:.1f} s; last step: loss {metrics['loss']:.4f}, action"
+        f" {metrics['action_loss']:.4f} (accuracy {metrics['action_accuracy']:.3f}, episode"
+        f" length {metrics['episode_length']:.2f}), yolo {metrics['yolo_loss']:.4f}"
+        f" ({metrics['yolo_num_fg']:.0f} fg anchors)")
+    require(all(math.isfinite(v) for v in metrics.values()),
+            f"supervised train: non-finite metrics {metrics}")
+    require(trainer.step == TRAIN_ITERS and trainer.optimizer.updates == TRAIN_ITERS // TRAIN_ACCUM,
+            f"supervised train: step {trainer.step}, updates {trainer.optimizer.updates}")
+    test_metrics = json.loads((trainer.checkpoint_dir / "metrics.json").read_text())
+    require(all(math.isfinite(v) for v in test_metrics.values())
+            and {"map", "supervised_action_loss", "supervised_map"} <= set(test_metrics),
+            f"supervised train: test metrics {test_metrics}")
+    say("supervised test metrics: " + ", ".join(
+        f"{k} {test_metrics[k]:.4f}" for k in ("map", "action_accuracy", "prop_patches_found",
+                                               "supervised_action_loss", "supervised_map")))
+
+    # The launch counts, derived from the code: per step, per test, the run.
+    expected = Counter({k: TRAIN_ITERS * n for k, n in per_step.items()})
+    expected += Counter(sup_test_launches(SUP_TEST_IDS)) + Counter(sup_test_launches(n_test))
+    expected = {k: expected.get(k, 0) for k in KERNEL_NAMES}
+    if main_counts != expected:
+        raise AssertionError(f"supervised run: kernel launches {main_counts}, expected"
+                             f" {expected} ({TRAIN_ITERS} x {per_step} + the tests'"
+                             f" {sup_test_launches(SUP_TEST_IDS)} and"
+                             f" {sup_test_launches(n_test)})")
+    say(f"supervised run: kernel launches {main_counts} = {TRAIN_ITERS} x {per_step} per step"
+        f" + {sup_test_launches(SUP_TEST_IDS)} in the test of {SUP_TEST_IDS} images +"
+        f" {sup_test_launches(n_test)} in the final test, as derived")
+    reset_launches(port)
+    trainer.test()
+    check_launches(port, f"one supervised test ({n_test} images)", sup_test_launches(n_test))
+
+    # What moved: both optimizer groups, and the BN statistics of both the
+    # embedder and the detector (each runs in train mode in a step).
+    state = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    changed = lambda pred: [k for k in state if pred(k) and not torch.equal(state[k], init[k])]
+    is_stat = lambda k: "running_" in k
+    for group in trainer.optimizer.adamw.param_groups:
+        names = {id(p) for p in group["params"]}
+        moved = [n for n, p in trainer.model.named_parameters()
+                 if id(p) in names and not torch.equal(state[n], init[n])]
+        require(moved, f"supervised train: no parameter of the {group['label']} group moved")
+        say(f"supervised train: {len(moved)} of {len(names)} parameters of the"
+            f" {group['label']} group moved")
+    for prefix in ("h.", "gpt_backbone_net.", "action_head.", "project_concat.", "yolox.head.",
+                   "yolox.backbone."):
+        require(changed(lambda k: k.startswith(prefix) and not is_stat(k)),
+                f"supervised train: no parameter under {prefix} moved")
+    for prefix in ("gpt_backbone_net.", "yolox."):
+        require(changed(lambda k: k.startswith(prefix) and is_stat(k)),
+                f"supervised train: the BN statistics under {prefix} did not move")
+    files = {p.name for p in trainer.checkpoint_dir.iterdir()}
+    require({"checkpoint.pt", "checkpoint_best.pt", "train_state.pt", "config.json",
+             "metrics.json", "best_model.txt"} <= files,
+            f"supervised train: checkpoint files {sorted(files)}")
+    require("map:" in (trainer.checkpoint_dir / "best_model.txt").read_text(),
+            "supervised train: best_model.txt does not track map")
+    say("supervised train: the embedder's and the detector's BN statistics moved; checkpoint"
+        f" written ({sorted(files)})")
+
+    # Phase times of two more steps (the second applies an update).
+    batch = build_supervised_batch(
+        trainer.train_dataset, [i % len(trainer.train_dataset) for i in range(TRAIN_B)],
+        trainer.config, np.random.default_rng(seed))
+    upload_mb = sum(batch[k].nbytes for k in TRAIN_KEYS) / 1e6
+    for i in range(2):
+        trainer.phase_events = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(port)
+        start = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - start) * 1e3
+        check_launches(port, f"one supervised train step B={TRAIN_B}", per_step)
+        marks = trainer.phase_events
+        trainer.phase_events = None
+        phases = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(marks, marks[1:])}
+        say(f"supervised train step B={TRAIN_B} ({'update' if i else 'accumulate'}):"
+            f" {step_ms:.2f} ms wall; device-clock phases "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in phases.items())
+            + f" (upload of {upload_mb:.1f} MB from pageable memory:"
+            f" {upload_mb / phases['upload']:.2f} GB/s); peak memory"
+            f" {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    ops = profile_run(f"supervised train step B={TRAIN_B}", step_ms,
+                      lambda: trainer.train_step(batch), unit=("train step", 1))
+    if ops is not None:
+        say(f"supervised train step B={TRAIN_B}: {ops:.0f} device operations")
+
+    # One resumed iteration from the checkpoint on disk, and its final test.
+    run_dir = trainer.checkpoint_dir
+    del trainer
+    reset_launches(port)
+    resumed = port.train_main(port.tconfig.get_args(
+        flags + ["--resume-training", str(run_dir), "--max-iters", "2"]))
+    torch.cuda.synchronize()
+    resume_counts = check_launches(port, "the resumed supervised run", dict(
+        Counter(per_step) + Counter(sup_test_launches(n_test))))
+    require(resumed.step == TRAIN_ITERS + 1, f"supervised resume: step {resumed.step}")
+    require(resumed.optimizer.updates == TRAIN_ITERS // TRAIN_ACCUM
+            and resumed.optimizer.mini_step == 1, "supervised resume: optimizer state")
+    say(f"supervised train: resumed from {run_dir.name} at step {TRAIN_ITERS}, took step"
+        f" {resumed.step}")
+    return Counter(main_counts) + Counter(resume_counts)
+
+
 def import_port():
     """The port's modules this script drives. In a directory that holds
     this script and nothing else of the repo, this raises ImportError."""
@@ -1096,12 +1382,16 @@ def main(argv=None) -> int:
     models = reference_phase(model_config, actions_info, model.state_dict(), args.seed)
     rollout_reference(models, train_config, args.seed)
     train_reference(models, model.state_dict(), train_config, args.seed)
+    supervised_reference(models, model.state_dict(), args.seed)
     del models, model
 
-    # 5-7. the paths, each read on its own
+    # 5-8. the paths, each read on its own
+    toy = toy_dataset(port, args.seed)
     by_path = {"serve": serve_phase(port, model_dir, args.seed),
                "smoke_conv": Counter(smoke_conv_phase(port)),
-               "train": train_phase(port, args.seed)}
+               "train": train_phase(port, args.seed, toy)}
+    torch.cuda.empty_cache()
+    by_path["supervised"] = sup_train_phase(port, args.seed, toy)
     launches = sum(by_path.values(), Counter())
     for name in KERNEL_NAMES:
         require(launches[name] > 0, f"{name} was launched no time on its path")

@@ -3,8 +3,8 @@
 The counterpart of ``jolineedle_tpu`` (JAX on a TPU), module for module: a
 small GPT decoder walks a grid of image patches and a YOLOX detector runs on
 the patches it visited. This package holds the serving path (glimpse rollout,
-detection on visited patches, postprocess, metrics; ``infer.py``) and
-REINFORCE training (``main.py``, ``train/reinforce.py``). The kernels that
+detection on visited patches, postprocess, metrics; ``infer.py``) and both
+training modes (``main.py``: ``train/supervised.py``, ``train/reinforce.py``). The kernels that
 the JAX package wrote in Pallas are hand-written CUDA kernels for Hopper
 (``ops/conv.py``, ``ops/attention.py``, sources under ``csrc/``).
 

@@ -8,9 +8,10 @@ image, the objects found, the steps and the latency, then the mean metrics
 over the images that have targets.
 
 ``infer_image`` is the per-image body on numpy arrays (no PIL), so a script
-can serve images it made itself. ``--output-dir`` (trajectory plots) and
-``--detection-checkpoint`` (a JAX msgpack detector) are not ported yet and
-raise.
+can serve images it made itself. ``--output-dir`` (trajectory plots),
+``--detection-checkpoint`` (a JAX msgpack detector) and a model directory
+whose ``config.json`` sets ``--no-recurrent-embedding`` (the full-prefix
+rollout) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -73,6 +74,11 @@ def load_model_dir(model_dir, device=None):
     """(train_config, model_config, GPT with the best checkpoint) of a model
     directory, on ``device`` (default: the GPU), in eval mode."""
     train_config, model_config = config_from_file(os.path.join(model_dir, "config.json"))
+    if getattr(model_config, "no_recurrent_embedding", False):
+        raise NotImplementedError(
+            "--no-recurrent-embedding (the full-prefix rollout) is not yet ported to"
+            " jolineedle_tpu_torch"
+        )
     if isinstance(getattr(train_config, "filter_classes", None), list):
         train_config.filter_classes = set(train_config.filter_classes)
     model = GPT.from_config(model_config, get_actions_info(train_config), device=device)

@@ -7,11 +7,14 @@ parser), the same ``config.json`` and the same work-dir layout: datasets from
 ``trainer.run()``. It runs on one CUDA device, or on ``device="cpu"`` when a
 caller asks (the tests do).
 
-Not ported yet, and refused with "not yet ported": ``--training-mode
-supervised``, ``--detection-checkpoint``, ``--measure-flops``,
-``--device-data-cache on`` (``auto`` streams the images of each batch,
-which gives the same pixels), ``--steps-per-dispatch`` above 1 (a TPU
-dispatch workaround) and more than one device in ``--devices``.
+Both training modes are ported: ``supervised`` (the default,
+``train/supervised.py``) and ``reinforce`` (``train/reinforce.py``).
+
+Not ported yet, and refused with "not yet ported": ``--detection-checkpoint``,
+``--measure-flops``, ``--device-data-cache on`` (``auto`` streams the images
+of each batch, which gives the same pixels), ``--steps-per-dispatch`` above 1
+(a TPU dispatch workaround), more than one device in ``--devices`` and
+``--no-recurrent-embedding`` (the full-prefix rollout).
 """
 
 from __future__ import annotations
@@ -49,35 +52,38 @@ def build_both_datasets(train_config, model_config, dataset_dir):
     )
 
 
-def _refuse_unported(train_config) -> None:
+def _refuse_unported(train_config, model_config) -> None:
     refused = {
-        "--training-mode supervised": train_config.training_mode == "supervised",
         "--detection-checkpoint": train_config.detection_checkpoint is not None,
         "--measure-flops": bool(train_config.measure_flops),
         "--device-data-cache on": getattr(train_config, "device_data_cache", "auto") == "on",
         "--steps-per-dispatch > 1": int(getattr(train_config, "steps_per_dispatch", 1)) > 1,
         "more than one device in --devices": len(train_config.gpu_ids) > 1,
+        "--no-recurrent-embedding": bool(getattr(model_config, "no_recurrent_embedding", False)),
     }
     for flag, asked in refused.items():
         if asked:
             raise NotImplementedError(f"{flag} is not yet ported to jolineedle_tpu_torch")
-    if train_config.training_mode != "reinforce":
+    if train_config.training_mode not in ("supervised", "reinforce"):
         raise ValueError(f"Unknown training mode: {train_config.training_mode}")
 
 
 def launch_training(train_config, model_config, dataset_dir, device=None):
     """Build the datasets, model, logger and trainer, restore what the flags
     ask for, and train. Returns the trainer."""
-    _refuse_unported(train_config)
+    _refuse_unported(train_config, model_config)
     device = resolve_device(device)
     train_dataset, test_dataset = build_both_datasets(train_config, model_config, dataset_dir)
     torch.manual_seed(train_config.seed)
     model = GPT.from_config(model_config, get_actions_info(train_config), device=device)
     logger = Logger(train_config, model_config)
 
-    from .train.reinforce import ReinforceTrainer
+    if train_config.training_mode == "supervised":
+        from .train.supervised import SupervisedTrainer as TrainerClass
+    else:
+        from .train.reinforce import ReinforceTrainer as TrainerClass
 
-    trainer = ReinforceTrainer(train_config, model, logger, train_dataset, test_dataset, device)
+    trainer = TrainerClass(train_config, model, logger, train_dataset, test_dataset, device)
 
     if train_config.init_from is not None:
         if train_config.resume_training is not None:
@@ -104,7 +110,7 @@ def main(args, device=None):
     """The CLI body on parsed ``args``; runs on ``device`` (default: the
     GPU). Returns the trainer."""
     train_config, model_config = args_to_config(args)
-    _refuse_unported(train_config)
+    _refuse_unported(train_config, model_config)
     device = resolve_device(device)
     random.seed(train_config.seed)
     np.random.seed(train_config.seed)

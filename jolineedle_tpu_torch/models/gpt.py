@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.attention import NEG_INF, causal_attention
+from .init import init_like_flax
 from .positional import positional_encoding_1d, positional_encoding_2d
 from .yolox import YOLOPAFPN, YOLOX_VARIANTS, NeedleYOLOX
 
@@ -124,6 +125,7 @@ class GPT(nn.Module):
     """Decision decoder + embedded YOLOX detector (``gpt.py:138-402``).
 
     Construct with :meth:`from_config` from a model config. Parameters are
+    drawn as the JAX package's modules draw them (``models/init.py``),
     float32 on ``device`` (default: the GPU; ``device="cpu"`` runs the plain
     PyTorch versions of the kernels).
     """
@@ -191,6 +193,7 @@ class GPT(nn.Module):
         )
         self.ln_f = nn.LayerNorm(n_embd, eps=1e-6)
         self.action_head = ActionHead(n_embd, n_actions)
+        init_like_flax(self, n_layer)
         self.to(device)
 
     @classmethod

@@ -1,16 +1,133 @@
-"""Host-side batch assembly in background threads.
+"""Host-side batch assembly: the supervised batches and the prefetcher.
 
-The part of ``jolineedle_tpu/train/batching.py`` that REINFORCE uses: the
-``Prefetcher``, which overlaps host batch assembly (PIL decode, numpy
-padding) with the device's work on the previous batches. The supervised
-batch builders wait for the supervised trainer.
+The counterpart of ``jolineedle_tpu/train/batching.py``: the numpy oracle
+(``env/oracle.py``) labels a fixed-shape episode per image, the patch pixels
+are gathered by vectorized slicing, and everything is padded to static caps
+(max_seq_len, max_det_patches, max_boxes). The ``Prefetcher`` overlaps that
+host work (PIL decode, numpy slicing) with the device's work on the previous
+batches.
+
+Only the streamed-pixel route is ported: a batch carries its patches as
+uint8. ``with_pixels=False`` (the device pool's geometry-only batches) needs
+``NeedleDataset.get_geometry`` and the device pool, which are not ported, and
+raises.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator
+from typing import Dict, Iterator
+
+import numpy as np
+
+from ..env.oracle import (
+    OracleEnv,
+    detection_patch_positions,
+    gather_patches,
+    generate_sample,
+)
+
+
+def _to_u8(x: np.ndarray) -> np.ndarray:
+    """uint8 pixels: dataset images already are; float [0, 1] converts."""
+    if x.dtype == np.uint8:
+        return x
+    return np.clip(np.round(x * 255.0), 0, 255).astype(np.uint8)
+
+
+def build_supervised_sample(
+    item: dict,
+    patch_size: int,
+    max_seq_len: int,
+    min_keypoints: int,
+    max_keypoints: int,
+    binomial_keypoints: bool,
+    max_det_patches: int,
+    max_boxes: int,
+    rng: np.random.Generator,
+    position=None,
+) -> Dict[str, np.ndarray]:
+    """One image -> a fixed-shape oracle episode and its detector patches
+    (``batching.py:32-105``, ``with_pixels=True``): positions, actions,
+    labels, masks and local boxes of the episode, its uint8 patches, and
+    the detector's patch positions, validity, targets and uint8 patches."""
+    image = item["image"]  # [H, W, C] uint8 (float in [0, 1] accepted)
+    boxes = np.asarray(item["bboxes"], np.float64).reshape(-1, 4)
+    env = OracleEnv(image.shape[:2], patch_size, boxes, rng)
+
+    sample = generate_sample(
+        env,
+        max_seq_len,
+        min_keypoints=min_keypoints,
+        max_keypoints=max_keypoints,
+        binomial_keypoints=binomial_keypoints,
+        position=position,
+        max_boxes=max_boxes,
+    )
+    sample["class_id"] = np.int32(item["class_id"])
+
+    det_pos, det_valid = detection_patch_positions(env, max_det_patches)
+    det_boxes = np.zeros((max_det_patches, max_boxes, 6), np.float32)
+    for i in range(max_det_patches):
+        if det_valid[i]:
+            local = env.cap_local_bboxes(env.local_bboxes(tuple(det_pos[i])), max_boxes)
+            det_boxes[i, : len(local)] = local
+    sample["yolox_positions"] = det_pos.astype(np.int32)
+    sample["bboxes_yolox"] = det_boxes
+    sample["yolox_valid"] = det_valid
+
+    sample["patches"] = _to_u8(gather_patches(image, sample["positions"], patch_size))
+    det_patches = gather_patches(image, det_pos, patch_size)
+    sample["patches_yolox"] = _to_u8(det_patches * det_valid[:, None, None, None])
+    return sample
+
+
+def build_supervised_batch(
+    dataset,
+    indices,
+    config,
+    rng: np.random.Generator,
+    with_pixels: bool = True,
+) -> Dict[str, np.ndarray]:
+    """The stacked samples of ``indices`` and their reference actions
+    (``batching.py:108-160``). One ``rng`` per batch draws the dataset's
+    class choice and augmentations and the oracle's episodes, in order."""
+    if not with_pixels:
+        raise NotImplementedError(
+            "geometry-only supervised batches (the device data pool) are not yet"
+            " ported to jolineedle_tpu_torch"
+        )
+    samples = []
+    for idx in indices:
+        item = dataset.__getitem__(int(idx), rng)
+        samples.append(build_supervised_sample(
+            item,
+            patch_size=config.patch_size,
+            max_seq_len=config.max_seq_len,
+            min_keypoints=config.min_keypoints,
+            max_keypoints=config.max_keypoints,
+            binomial_keypoints=config.binomial_keypoints,
+            max_det_patches=config.max_det_patches,
+            max_boxes=config.max_boxes,
+            rng=rng,
+        ))
+    batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    batch["image_idx"] = np.asarray(indices, np.int32)
+
+    # Reference actions (loss mode, reference: src/supervised.py:870-879):
+    # on the agent's own trajectory, each step's label is the action taken
+    # next, and the last live step keeps the oracle's label.
+    if getattr(config, "loss_mode", "on-optimal-trajectory") == "on-self-trajectory":
+        cur, nxt, masks = batch["current_actions"], batch["next_actions"], batch["masks"]
+        ref = np.zeros_like(cur)
+        ref[:, :-1] = cur[:, 1:]
+        last = masks.sum(axis=1).astype(np.int64) - 1
+        ref[np.arange(len(ref)), last] = nxt[np.arange(len(ref)), last]
+        batch["reference_actions"] = ref
+    else:
+        batch["reference_actions"] = batch["next_actions"]
+    return batch
 
 
 class Prefetcher:

@@ -127,18 +127,14 @@ class ReinforceTrainer(Trainer):
         self.last_return_mean = 0.0
         self.last_return_std = 1.0
         self._window_stats = []  # (sum, sumsq, count) device scalars
-        # Draws the rollouts' reset positions and actions, the detection
-        # negatives and the augmentation, in that order, every step.
-        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
-        #: Set to a list to record (phase, CUDA event) marks in train_step.
-        self.phase_events = None
+        # self.generator draws the rollouts' reset positions and actions, the
+        # detection negatives and the augmentation, in that order, every step.
 
     def train_state(self) -> dict:
         state = super().train_state()
         state.update(
             return_window=[self.last_return_mean, self.last_return_std],
             window_stats=[[float(v) for v in s] for s in self._window_stats],
-            generator=self.generator.get_state(),
         )
         return state
 
@@ -146,7 +142,6 @@ class ReinforceTrainer(Trainer):
         super().load_train_state(state)
         self.last_return_mean, self.last_return_std = state["return_window"]
         self._window_stats = [tuple(s) for s in state["window_stats"]]
-        self.generator.set_state(state["generator"])
 
     # --- return-normalisation window (reference: reinforce.py:92-106) ---------
     def _update_return_stats(self):
@@ -194,12 +189,6 @@ class ReinforceTrainer(Trainer):
         return {"image": np.stack(images), "bboxes": np.stack(boxes)}
 
     # --- the train step ---------------------------------------------------------
-    def _mark(self, phase: str) -> None:
-        if self.phase_events is not None:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            self.phase_events.append((phase, event))
-
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One REINFORCE iteration on a host batch; returns its metrics as
         device scalars (no host synchronisation)."""
