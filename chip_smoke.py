@@ -21,6 +21,8 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    The supervised eval's largest calls are held too, in bfloat16: the
    embedder's shapes at N = 320 (the teacher-forced eval's 16 x 20
    patches) and the detector's at N = 240 (12 eval episodes of 20 patches);
+   so are the full-prefix rollout's embedder calls of phase 7, at N = 80 in
+   float32 (B = 4 x 20 patches) and N = 20 in bfloat16 (the B = 1 request);
 4. reference: the float32 model on the card against the same model on the
    CPU (the plain versions of the kernels) on small inputs: the detector,
    the teacher-forced decoder and a greedy rollout (with a sharpened action
@@ -36,10 +38,28 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    module tree implies. Then one request and the batched rollout run again
    under ``torch.profiler``: the device's busy share and the kernels that
    take the most device time;
-6. smoke conv: ``python -m jolineedle_tpu_torch.scripts.smoke_conv`` run
+6. jax files, with the port alone: the phase-5 model written as a JAX run
+   directory (``checkpoint_best.msgpack`` by the port's flax writer, the same
+   ``config.json``) serves 2 requests with the positions, boxes and raw
+   detector outputs of the ``.pt`` directory, bit for bit; a second,
+   differently seeded model's detector written as a ported-weights msgpack
+   and loaded with ``--detection-checkpoint`` (``infer.load_model_dir``)
+   gives that model's detector outputs exactly and leaves the decision
+   weights; an upstream-layout state dict with an 80-class ``cls_preds``
+   goes through ``scripts/port_yolox_weights.py`` and loads, every tensor
+   but the 6 skipped ``cls_preds`` arriving;
+7. full prefix (``--no-recurrent-embedding``): the float32 model with the
+   sharpened head at B = 4, 448 px, 20 steps, full-prefix against KV-cache
+   rollouts, greedy (positions, masks and actions equal, logits within
+   ``REF_TOL``) and sampled from one generator (the same actions); then one
+   bfloat16 request from a model directory whose ``config.json`` sets the
+   flag. Each full-prefix rollout launches flash 3 x 20 times (one per layer
+   per step, at [B, 3, 21, 16]) and the embedder's conv kernels 20 times
+   over B x 20 patches, counted exactly;
+8. smoke conv: ``python -m jolineedle_tpu_torch.scripts.smoke_conv`` run
    in-process (the driver of the plain 3x3 conv kernel), its error against
    ``F.conv2d`` checked;
-7. train: a toy dataset of 2688x2688 images (a 6x6 grid of 448 px patches)
+9. train: a toy dataset of 2688x2688 images (a 6x6 grid of 448 px patches)
    written by the port's generator, then the train CLI
    (``jolineedle_tpu_torch.main``, REINFORCE) at the flagship config with
    batch 16, gradient accumulation 2, 4 iterations and its final test; the
@@ -52,7 +72,7 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    forwards. Then two more steps give the phase times (rollout, loss
    forward+backward, detection, optimizer, by CUDA events), the peak
    memory, and a ``torch.profiler`` busy share of one step;
-8. supervised: the train CLI with ``--training-mode supervised`` on the
+10. supervised: the train CLI with ``--training-mode supervised`` on the
    same toy dataset, batch 16, accumulation 2, dropout 0.1: 4 iterations
    (``--max-iters 5``), a test of 16 sampled test images after the last, the
    final test, then a resumed run of one iteration. The losses and the test
@@ -70,7 +90,9 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
 Phase 3 also holds the flash-attention kernel against its plain versions
 (output, log-sum-exp and gradients) at the decoder's shape [16, 3, 21, 16]
 on the model's strided views of its c_attn output, a ragged multi-tile [2,
-4, 200, 64] and the long-T [128, 4, 128, 64], times each as the wrapper's
+4, 200, 64] and the long-T [128, 4, 128, 64], and at the full-prefix
+rollout's [4, 3, 21, 16] in float32 and [1, 3, 21, 16] in bfloat16 on the
+model's views (phase 7's shapes), times each as the wrapper's
 whole call (per launch and back to back), and checks under
 ``torch.profiler`` that one call on the model's views is one device
 operation; it holds the plain 3x3 conv kernel at the smoke script's
@@ -159,6 +181,11 @@ SUP_EMBED_N, SUP_DET_N = TRAIN_B * STEPS, EVAL_DET_ROWS * STEPS
 # of its c_attn output), a ragged multi-tile one and the needle-scale long-T
 # row of the JAX package's sweep (scripts/bench_attention.py:75).
 FLASH_SHAPES = [(TRAIN_B, 3, STEPS + 1, 16), (2, 4, 200, 64), (128, 4, 128, 64)]
+# The full-prefix rollout (phase 7) at B = FULL_PREFIX_B in float32 and the
+# B = 1 request in bfloat16: each step embeds B x STEPS patches and runs
+# flash at [B, 3, STEPS + 1, 16] on the model's c_attn views.
+FULL_PREFIX_B = 4
+FULL_PREFIX_RUNS = [(FULL_PREFIX_B, torch.float32), (1, torch.bfloat16)]
 # Device operations of one B = 16 train step when the flash wrapper still
 # copied q, k and v in and o out (PERF.md section 5): 4 copies per layer.
 TRAIN_STEP_OPS_WITH_COPIES = 28_328
@@ -484,7 +511,9 @@ def kernel_phase(kconv, shapes, seed):
     each dwblock shape of the B = 1 request (N = 1) in bfloat16, and the
     supervised eval's largest calls in bfloat16: the embedder's shapes at
     N = SUP_EMBED_N (the teacher-forced eval's B x T patches), the
-    detector's at N = SUP_DET_N (a chunk of eval episodes); returns rows."""
+    detector's at N = SUP_DET_N (a chunk of eval episodes); and the
+    embedder's shapes of the full-prefix rollout (B x STEPS patches per step)
+    at each of FULL_PREFIX_RUNS' batch and dtype; returns rows."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     per_call = shapes["embedder"] + shapes["detector"]
     runs = [(key, dtype, N_PATCHES) for key in sorted(per_call)
@@ -492,6 +521,8 @@ def kernel_phase(kconv, shapes, seed):
     runs += [(key, torch.bfloat16, 1) for key in sorted(per_call) if key[0] == "dwblock_bn_silu"]
     runs += [(key, torch.bfloat16, SUP_EMBED_N) for key in sorted(shapes["embedder"])]
     runs += [(key, torch.bfloat16, SUP_DET_N) for key in sorted(shapes["detector"])]
+    runs += [(key, dtype, b * STEPS) for b, dtype in FULL_PREFIX_RUNS
+             for key in sorted(shapes["embedder"])]
     rows = []
     for (name, H, W, C, K), dtype, n in runs:
         r = KERNELS[name]["measure"](kconv, H, W, C, K, dtype, gen, n=n)
@@ -529,23 +560,25 @@ def wide_variant_phase(kconv, seed):
 
 
 def new_kernel_phase(port, seed):
-    """The flash kernel and the plain 3x3 conv at their shapes, both dtypes."""
+    """The flash kernel and the plain 3x3 conv at their shapes, both dtypes;
+    flash also at the full-prefix rollout's shapes, each in its own dtype."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    runs = [(shape, dtype, shape == FLASH_SHAPES[0]) for shape in FLASH_SHAPES
+            for dtype in (torch.float32, torch.bfloat16)]
+    runs += [((b, 3, STEPS + 1, 16), dtype, True) for b, dtype in FULL_PREFIX_RUNS]
     rows = []
-    for shape in FLASH_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            views = shape == FLASH_SHAPES[0]
-            r = measure_flash(port.kattn, shape, dtype, gen, model_views=views)
-            r.update(name="flash_attention", shape=list(shape), dtype=DTYPE_NAMES[dtype],
-                     inputs="the model's c_attn views" if views else "contiguous")
-            rows.append(r)
-            say(f"kernel flash_attention {list(shape)} {DTYPE_NAMES[dtype]} ({r['inputs']}):"
-                f" {r['ms']:.4f} ms (back to back {r['back_to_back_ms']:.4f}; backward,"
-                f" PyTorch ops: {r['backward_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, SDPA"
-                f" {r['library_ms']:.4f} ms (back to back {r['library_back_to_back_ms']:.4f}),"
-                f" bound {r['bound_ms']:.6f} ms ({r['bound_by']}),"
-                f" max |err| {r['max_abs_err']:.3g}, lse {r['lse_max_abs_err']:.3g},"
-                f" gradients {r['grad_max_abs_err']:.3g}")
+    for shape, dtype, views in runs:
+        r = measure_flash(port.kattn, shape, dtype, gen, model_views=views)
+        r.update(name="flash_attention", shape=list(shape), dtype=DTYPE_NAMES[dtype],
+                 inputs="the model's c_attn views" if views else "contiguous")
+        rows.append(r)
+        say(f"kernel flash_attention {list(shape)} {DTYPE_NAMES[dtype]} ({r['inputs']}):"
+            f" {r['ms']:.4f} ms (back to back {r['back_to_back_ms']:.4f}; backward,"
+            f" PyTorch ops: {r['backward_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, SDPA"
+            f" {r['library_ms']:.4f} ms (back to back {r['library_back_to_back_ms']:.4f}),"
+            f" bound {r['bound_ms']:.6f} ms ({r['bound_by']}),"
+            f" max |err| {r['max_abs_err']:.3g}, lse {r['lse_max_abs_err']:.3g},"
+            f" gradients {r['grad_max_abs_err']:.3g}")
     flash_device_ops(port.kattn, gen)
     for shape in PLAIN_CONV_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -564,8 +597,9 @@ def kernels_json(rows, new_rows, wide_rows, launches, by_path):
     shape in ``shapes``. Flash attention: one teacher-forced forward of the
     train step (3 launches at the decoder's shape, bfloat16). The plain 3x3
     conv: one call at the smoke script's default (bfloat16). dwblock's rows
-    at N = 1 (the B = 1 request) and the fused blocks' rows at the
-    supervised eval's N are in ``shapes``, outside the totals.
+    at N = 1 (the B = 1 request), the fused blocks' rows at the
+    supervised eval's and the full-prefix rollout's N, and flash's rows at
+    the full-prefix shapes are in ``shapes``, outside the totals.
     ``launches``
     sums every path's count; ``launches_by_path`` splits it. The wide
     variant's rows go under conv3x3_bn_silu's ``wide_variant_shapes``,
@@ -1005,7 +1039,207 @@ def profile_run(what, untraced_ms, fn, top=8, unit=("rollout step", STEPS)):
     return len(spans) / unit[1]
 
 
-# --- phase 6: the smoke-conv script ------------------------------------------------
+# --- phase 6: the JAX package's files ------------------------------------------------
+def _same_preds(a, b) -> bool:
+    return (a is None and b is None) or (a is not None and b is not None
+                                         and np.array_equal(a, b))
+
+
+def jax_files_phase(port, model_dir, seed):
+    """Serving what the JAX package writes, with the port alone: a run
+    directory whose best checkpoint is flax msgpack, a ported-weights
+    detector through ``--detection-checkpoint``, and the port's weight
+    script on an upstream-layout state dict. Returns the launch counts."""
+    from jolineedle_tpu_torch import checkpoint as ckpt
+    from jolineedle_tpu_torch.env.oracle import gather_patches
+    from jolineedle_tpu_torch.infer import infer_image, load_model_dir
+    from jolineedle_tpu_torch.models.bridge import torch_to_flax, yolox_torch_to_flax
+    from jolineedle_tpu_torch.scripts import port_yolox_weights
+
+    per = EXPECTED_PER_CALL
+    root = model_dir.parent / "jax_files"
+    shutil.rmtree(root, ignore_errors=True)
+    train_config, model_config, model = load_model_dir(model_dir)
+    state = model.state_dict()
+
+    # A JAX run directory: the same weights as flax msgpack, the same config.
+    run_dir = root / "run"
+    run_dir.mkdir(parents=True)
+    shutil.copy(model_dir / "config.json", run_dir / "config.json")
+    ckpt.write_msgpack(run_dir / ckpt.FLAX_BEST, torch_to_flax(state, model))
+    _, _, jmodel = load_model_dir(run_dir)
+    require(all(torch.equal(jmodel.state_dict()[k], v) for k, v in state.items()
+                if not k.endswith("num_batches_tracked")),
+            "jax files: the msgpack run directory did not load the .pt weights bit for bit")
+    rng = np.random.default_rng(seed + 5)
+    side = GRID * PATCH
+    images = [rng.integers(0, 256, (side, side, 3), dtype=np.uint8) for _ in range(2)]
+    targets = [np.concatenate([xy, xy + [64, 48]], 1).astype(np.float32)
+               for xy in (rng.integers(0, side - 80, (2, 2)) for _ in images)]
+    def heads(models, image, out):
+        """Each model's raw detector outputs on the request's visited patches."""
+        patches = torch.from_numpy(gather_patches(image, out["positions"][: out["n_valid"]],
+                                                  PATCH)).cuda()
+        with torch.no_grad():
+            return [m.yolox_outputs(patches)[0] for m in models]
+
+    reset_launches(port)
+    for i, (image, boxes) in enumerate(zip(images, targets)):
+        want = infer_image(model, train_config, image, boxes, seed=i)
+        got = infer_image(jmodel, train_config, image, boxes, seed=i)
+        require(np.array_equal(got["positions"], want["positions"])
+                and got["n_valid"] == want["n_valid"] and _same_preds(got["preds"], want["preds"]),
+                f"jax files: request {i} from the msgpack directory differs from the .pt one")
+        h_pt, h_msgpack = heads((model, jmodel), image, want)
+        require(all(torch.equal(h_pt[k], h_msgpack[k]) for k in ("boxes", "obj_logits",
+                                                                 "cls_logits")),
+                f"jax files: request {i}: the detector's outputs differ")
+        say(f"jax files: request {i} from checkpoint_best.msgpack = from checkpoint_best.pt:"
+            f" positions, {want['n_valid']} steps before STOP, {want['obj_count']} boxes and the"
+            " detector's raw outputs on the visited patches equal")
+
+    # --detection-checkpoint: the detector of another model, as a ported-weights file.
+    torch.manual_seed(seed + 1)
+    other = port.GPT.from_config(model_config, port.get_actions_info(train_config)).eval()
+    randomize_bn(other, seed + 1)
+    det_path = ckpt.write_msgpack(root / "detector.msgpack",
+                                  yolox_torch_to_flax(other.yolox.state_dict(), other.yolox))
+    dtrain, _, dmodel = load_model_dir(model_dir, detection_checkpoint=det_path)
+    dstate = dmodel.state_dict()
+    require(all(torch.equal(dstate[k], v) for k, v in state.items() if not k.startswith("yolox.")),
+            "jax files: --detection-checkpoint changed a decision weight")
+    out = infer_image(dmodel, dtrain, images[0], targets[0], seed=0)
+    got, want = heads((dmodel, other), images[0], out)
+    for key in ("boxes", "obj_logits", "cls_logits"):
+        require(torch.equal(got[key], want[key]),
+                f"jax files: {key} of the loaded detector differ from the other model's")
+    launches = check_launches(port, "jax files (5 requests, 6 detector calls)", {
+        k: 5 * (STEPS * per["embedder"][k] + per["detector"][k]) + 6 * per["detector"][k]
+        for k in per["embedder"]})
+    say(f"jax files: --detection-checkpoint gave the other model's detector outputs on the"
+        f" {out['n_valid']} visited patches exactly; the decision weights stayed")
+
+    # Upstream (Megvii) weights with COCO's 80 classes through the port's script.
+    upstream = {k: v.cpu().clone() for k, v in other.yolox.state_dict().items()}
+    cls_keys = [k for k in upstream if ".cls_preds." in k]
+    gen = torch.Generator().manual_seed(seed + 2)
+    for k in cls_keys:
+        upstream[k] = torch.randn((80,) + tuple(upstream[k].shape[1:]), generator=gen)
+    pth = root / "yolox_coco.pth"
+    torch.save({"model": upstream}, pth)
+    skipped = port_yolox_weights.main(["--checkpoint", str(pth), "--variant",
+                                       model_config.image_processor, "--output",
+                                       str(root / "ported.msgpack")])
+    require(sorted(skipped) == sorted(cls_keys) and len(cls_keys) == 6,
+            f"jax files: the script skipped {skipped}")
+    ckpt.load_detection_params(root / "ported.msgpack", dmodel)
+    got = dmodel.yolox.state_dict()
+    arrived = [k for k in upstream if k not in cls_keys and not k.endswith("num_batches_tracked")]
+    require(all(torch.equal(got[k].cpu(), upstream[k]) for k in arrived),
+            "jax files: a tensor of the upstream checkpoint did not arrive")
+    require(all(got[k].shape[0] == 1 for k in cls_keys), "jax files: cls_preds class count")
+    say(f"jax files: scripts/port_yolox_weights.py ported {len(arrived)} tensors of an 80-class"
+        f" upstream state dict and skipped the {len(skipped)} cls_preds tensors")
+    return Counter(launches)
+
+
+# --- phase 7: the full-prefix rollout -------------------------------------------------
+def full_prefix_phase(port, model_dir, state, seed):
+    """``--no-recurrent-embedding`` on the card: the float32 model with the
+    sharpened head, full-prefix against KV-cache rollouts at B = 4 (greedy:
+    the same positions and masks, logits within REF_TOL; sampled from one
+    generator: the same actions), then one bf16 request served from a model
+    directory whose config.json sets the flag. Each full-prefix rollout
+    launches the flash kernel once per layer per step (at [B, 3, STEPS + 1,
+    16]) and the embedder's conv kernels once per step, over B x STEPS
+    patches. Returns the launch counts of the full-prefix runs."""
+    from jolineedle_tpu_torch.infer import infer_image, load_model_dir
+    from jolineedle_tpu_torch.train.rollout import eval_rollout, to_numpy
+
+    per = EXPECTED_PER_CALL
+    train_config, model_config = port.tconfig.config_from_file(model_dir / "config.json")
+    model = port.GPT.from_config(model_config, port.get_actions_info(train_config),
+                                 compute_dtype="float32").eval()
+    model.load_state_dict(sharpen_head(state))
+    rng = np.random.default_rng(seed + 6)
+    side = GRID * PATCH
+    images = torch.from_numpy(rng.integers(0, 256, (FULL_PREFIX_B, side, side, 3),
+                                           dtype=np.uint8)).cuda()
+    xy = rng.integers(0, side - 80, (FULL_PREFIX_B, 2, 2))
+    boxes = np.concatenate([xy, xy + [64, 48]], -1).astype(np.float32)
+    start = torch.from_numpy(rng.integers(0, GRID, (FULL_PREFIX_B, 2)))
+    rollout_launches = {"flash_attention": N_LAYER * STEPS,
+                        **{k: STEPS * per["embedder"][k] for k in per["embedder"]}}
+
+    def run(full_prefix, sample):
+        model.no_recurrent_embedding = full_prefix
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        reset_launches(port)
+        start_s = time.perf_counter()
+        ro = to_numpy(eval_rollout(model, images, boxes, train_config, sample=sample,
+                                   generator=gen, positions=start,
+                                   collect=("logits", "actions")))
+        ms = (time.perf_counter() - start_s) * 1e3
+        if full_prefix:
+            counts = check_launches(port, f"full-prefix rollout B={FULL_PREFIX_B}"
+                                    f" ({'sampled' if sample else 'greedy'})", rollout_launches)
+        else:
+            counts = check_launches(port, f"KV-cache rollout B={FULL_PREFIX_B}",
+                                    {k: STEPS * per["embedder"][k] for k in per["embedder"]})
+        return ro, ms, Counter(counts) if full_prefix else Counter()
+
+    run(False, False)  # warm-ups
+    run(True, False)
+    cached, cached_ms, _ = run(False, False)
+    full, full_ms, launches = run(True, False)
+    for key in ("positions", "masks", "actions"):
+        require(np.array_equal(full[key], cached[key]),
+                f"full prefix: greedy {key} differ from the KV-cache rollout's")
+    err = float(np.abs(full["logits"] - cached["logits"]).max())
+    np.testing.assert_allclose(full["logits"], cached["logits"], **REF_TOL)
+    moved = int((np.abs(np.diff(full["positions"], axis=1)).sum(-1) > 0).sum())
+    say(f"full prefix: greedy B={FULL_PREFIX_B} float32 rollout = the KV-cache rollout"
+        f" (positions, masks, actions equal; logits max |diff| {err:.3g}; {moved} moves of"
+        f" {FULL_PREFIX_B * STEPS}); {full_ms:.2f} ms against {cached_ms:.2f} ms")
+    s_cached, _, _ = run(False, True)
+    s_full, s_ms, counts = run(True, True)
+    launches += counts
+    for key in ("actions", "positions", "masks"):
+        require(np.array_equal(s_full[key], s_cached[key]),
+                f"full prefix: sampled {key} differ from the KV-cache rollout's")
+    say(f"full prefix: sampled B={FULL_PREFIX_B} rollout from one generator takes the KV-cache"
+        f" rollout's actions ({s_ms:.2f} ms; {int((s_full['actions'] != full['actions']).sum())}"
+        f" of {FULL_PREFIX_B * STEPS} differ from the greedy ones)")
+    for full_prefix, ms in ((False, cached_ms), (True, full_ms)):
+        profile_run(f"{'full-prefix' if full_prefix else 'KV-cache'} rollout B={FULL_PREFIX_B}"
+                    " float32", ms, lambda: run(full_prefix, False))
+
+    # One bf16 request from a model directory whose config.json sets the flag.
+    fp_dir = model_dir.parent / "full_prefix"
+    fp_dir.mkdir(parents=True, exist_ok=True)
+    config = json.loads((model_dir / "config.json").read_text())
+    config["model"]["no_recurrent_embedding"] = True
+    (fp_dir / "config.json").write_text(json.dumps(config, indent=4))
+    shutil.copy(model_dir / "checkpoint_best.pt", fp_dir / "checkpoint_best.pt")
+    fp_train, _, fp_model = load_model_dir(fp_dir)
+    require(fp_model.no_recurrent_embedding and fp_model.compute_dtype == torch.bfloat16,
+            "full prefix: the served model")
+    image = images[0].cpu().numpy()
+    infer_image(fp_model, fp_train, image, boxes[0], seed=0)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches(port)
+    out = infer_image(fp_model, fp_train, image, boxes[0], seed=0)
+    launches += Counter(check_launches(port, "full-prefix request (bf16)", {
+        "flash_attention": N_LAYER * STEPS,
+        **{k: STEPS * per["embedder"][k] + per["detector"][k] for k in per["embedder"]}}))
+    require(out["positions"].shape == (STEPS + 1, 2)
+            and np.isfinite(out["rollout"]["logprobs"]).all(), "full prefix: the request")
+    say(f"full prefix: bf16 request {out['request_ms']:.2f} ms ({out['rollout_ms']:.2f} ms"
+        f" rollout), {out['n_valid']} steps before STOP, {out['obj_count']} objects found")
+    return launches
+
+
+# --- phase 8: the smoke-conv script ------------------------------------------------
 def smoke_conv_phase(port):
     """``python -m jolineedle_tpu_torch.scripts.smoke_conv`` in-process, at
     its defaults: the path of the plain 3x3 conv kernel."""
@@ -1023,7 +1257,7 @@ def smoke_conv_phase(port):
     return counts
 
 
-# --- phase 7: train ----------------------------------------------------------------
+# --- phase 9: train ----------------------------------------------------------------
 def train_flags(data_dir, work_dir, seed):
     flags = list(FLAGSHIP)
     flags[flags.index("--dataset-dir") + 1] = str(data_dir)
@@ -1379,15 +1613,18 @@ def main(argv=None) -> int:
     wide_rows = wide_variant_phase(port.kconv, args.seed)
 
     # 4. reference
-    models = reference_phase(model_config, actions_info, model.state_dict(), args.seed)
+    state = model.state_dict()
+    models = reference_phase(model_config, actions_info, state, args.seed)
     rollout_reference(models, train_config, args.seed)
-    train_reference(models, model.state_dict(), train_config, args.seed)
-    supervised_reference(models, model.state_dict(), args.seed)
+    train_reference(models, state, train_config, args.seed)
+    supervised_reference(models, state, args.seed)
     del models, model
 
-    # 5-8. the paths, each read on its own
+    # 5-10. the paths, each read on its own
     toy = toy_dataset(port, args.seed)
     by_path = {"serve": serve_phase(port, model_dir, args.seed),
+               "jax_files": jax_files_phase(port, model_dir, args.seed),
+               "full_prefix": full_prefix_phase(port, model_dir, state, args.seed),
                "smoke_conv": Counter(smoke_conv_phase(port)),
                "train": train_phase(port, args.seed, toy)}
     torch.cuda.empty_cache()

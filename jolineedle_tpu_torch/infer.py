@@ -1,17 +1,19 @@
 """Inference and eval CLI of the port: ``python -m jolineedle_tpu_torch.infer``.
 
 The counterpart of ``infer.py:44-229`` with the same flags. It loads
-``config.json`` and the best checkpoint from ``--model-dir``, pads each image
+``config.json`` and the best checkpoint from ``--model-dir`` (the port's
+``checkpoint_best.pt`` or, from a JAX run directory,
+``checkpoint_best.msgpack``), then ``--detection-checkpoint`` (a JAX msgpack
+of the detector's weights) if given, pads each image
 to a patch multiple, runs one sampled rollout per image, detects on the
 visited patches, moves the boxes to full-image coordinates and prints, per
 image, the objects found, the steps and the latency, then the mean metrics
 over the images that have targets.
 
 ``infer_image`` is the per-image body on numpy arrays (no PIL), so a script
-can serve images it made itself. ``--output-dir`` (trajectory plots),
-``--detection-checkpoint`` (a JAX msgpack detector) and a model directory
-whose ``config.json`` sets ``--no-recurrent-embedding`` (the full-prefix
-rollout) are not ported yet and raise.
+can serve images it made itself. A ``config.json`` that sets
+``--no-recurrent-embedding`` serves through the full-prefix rollout.
+``--output-dir`` (trajectory plots) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .checkpoint import load_model
+from .checkpoint import load_detection_params, load_model_file, model_file
 from .config import config_from_file
 from .data.dataset import complete_to_patch_size
 from .env.actions import get_actions_info
@@ -70,19 +72,25 @@ def load_bboxes(bbox_fname):
     return np.array(bboxes, np.float32).reshape(-1, 4)
 
 
-def load_model_dir(model_dir, device=None):
+def load_model_dir(model_dir, device=None, detection_checkpoint=None):
     """(train_config, model_config, GPT with the best checkpoint) of a model
-    directory, on ``device`` (default: the GPU), in eval mode."""
+    directory, the port's (``checkpoint_best.pt``) or the JAX package's
+    (``checkpoint_best.msgpack``), on ``device`` (default: the GPU), in eval
+    mode; then the detector's weights from ``detection_checkpoint``, which
+    turns detection on (``infer.py:102-104``). A directory with both files
+    raises."""
     train_config, model_config = config_from_file(os.path.join(model_dir, "config.json"))
-    if getattr(model_config, "no_recurrent_embedding", False):
-        raise NotImplementedError(
-            "--no-recurrent-embedding (the full-prefix rollout) is not yet ported to"
-            " jolineedle_tpu_torch"
-        )
     if isinstance(getattr(train_config, "filter_classes", None), list):
         train_config.filter_classes = set(train_config.filter_classes)
     model = GPT.from_config(model_config, get_actions_info(train_config), device=device)
-    load_model(model, model_dir, best=True)
+    path = model_file(model_dir, best=True)
+    if path is None:
+        raise FileNotFoundError(f"{model_dir} holds neither checkpoint_best.pt nor"
+                                " checkpoint_best.msgpack")
+    load_model_file(model, path)
+    if detection_checkpoint is not None:
+        load_detection_params(detection_checkpoint, model)
+        train_config.detection_enabled = True
     return train_config, model_config, model.eval()
 
 
@@ -182,12 +190,8 @@ def infer(args, device=None):
         raise NotImplementedError(
             "--output-dir (trajectory plots) is not yet ported to jolineedle_tpu_torch"
         )
-    if args.detection_checkpoint is not None:
-        raise NotImplementedError(
-            "--detection-checkpoint is not yet ported to jolineedle_tpu_torch"
-        )
     device = resolve_device(device)
-    train_config, _, model = load_model_dir(args.model_dir, device)
+    train_config, _, model = load_model_dir(args.model_dir, device, args.detection_checkpoint)
 
     image_paths, target_paths = [], []
     if args.dataset:

@@ -9,12 +9,14 @@ caller asks (the tests do).
 
 Both training modes are ported: ``supervised`` (the default,
 ``train/supervised.py``) and ``reinforce`` (``train/reinforce.py``).
+``--init-from`` and ``--detection-checkpoint`` read the port's ``.pt`` and
+the JAX package's ``.msgpack`` files; ``--no-recurrent-embedding`` rolls
+out with the full-prefix forward (``train/rollout.py``).
 
-Not ported yet, and refused with "not yet ported": ``--detection-checkpoint``,
-``--measure-flops``, ``--device-data-cache on`` (``auto`` streams the images
-of each batch, which gives the same pixels), ``--steps-per-dispatch`` above 1
-(a TPU dispatch workaround), more than one device in ``--devices`` and
-``--no-recurrent-embedding`` (the full-prefix rollout).
+Not ported yet, and refused with "not yet ported": ``--measure-flops``,
+``--device-data-cache on`` (``auto`` streams the images of each batch, which
+gives the same pixels), ``--steps-per-dispatch`` above 1 (a TPU dispatch
+workaround) and more than one device in ``--devices``.
 """
 
 from __future__ import annotations
@@ -52,14 +54,12 @@ def build_both_datasets(train_config, model_config, dataset_dir):
     )
 
 
-def _refuse_unported(train_config, model_config) -> None:
+def _refuse_unported(train_config) -> None:
     refused = {
-        "--detection-checkpoint": train_config.detection_checkpoint is not None,
         "--measure-flops": bool(train_config.measure_flops),
         "--device-data-cache on": getattr(train_config, "device_data_cache", "auto") == "on",
         "--steps-per-dispatch > 1": int(getattr(train_config, "steps_per_dispatch", 1)) > 1,
         "more than one device in --devices": len(train_config.gpu_ids) > 1,
-        "--no-recurrent-embedding": bool(getattr(model_config, "no_recurrent_embedding", False)),
     }
     for flag, asked in refused.items():
         if asked:
@@ -71,7 +71,7 @@ def _refuse_unported(train_config, model_config) -> None:
 def launch_training(train_config, model_config, dataset_dir, device=None):
     """Build the datasets, model, logger and trainer, restore what the flags
     ask for, and train. Returns the trainer."""
-    _refuse_unported(train_config, model_config)
+    _refuse_unported(train_config)
     device = resolve_device(device)
     train_dataset, test_dataset = build_both_datasets(train_config, model_config, dataset_dir)
     torch.manual_seed(train_config.seed)
@@ -102,6 +102,10 @@ def launch_training(train_config, model_config, dataset_dir, device=None):
 
             logger.visdom = VisdomPlotter.load(visdom_pkl, env_name=train_config.env_name)
 
+    if train_config.detection_checkpoint is not None:
+        print("Load detection checkpoint from", train_config.detection_checkpoint)
+        trainer.load_detection_checkpoint(train_config.detection_checkpoint)
+
     trainer.run()
     return trainer
 
@@ -110,7 +114,7 @@ def main(args, device=None):
     """The CLI body on parsed ``args``; runs on ``device`` (default: the
     GPU). Returns the trainer."""
     train_config, model_config = args_to_config(args)
-    _refuse_unported(train_config, model_config)
+    _refuse_unported(train_config)
     device = resolve_device(device)
     random.seed(train_config.seed)
     np.random.seed(train_config.seed)

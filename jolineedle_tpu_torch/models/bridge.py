@@ -6,6 +6,9 @@ them into the port's :class:`~jolineedle_tpu_torch.models.gpt.GPT`;
 ``torch_to_flax`` goes the other way. The mapping is an explicit list of
 (torch key, flax collection, flax path, transform) entries, so a leaf that
 is unmapped or left unused raises instead of being dropped.
+``yolox_flax_to_torch`` and ``yolox_torch_to_flax`` do the same for a
+``NeedleYOLOX`` alone (the JAX ``yolox`` subtree: ``--detection-checkpoint``
+files).
 
 The YOLOX entries invert a copy of ``jolineedle_tpu/models/port.py``'s
 ``yolox_key_map`` (``port.py:43-189``): the Megvii attribute names of the
@@ -204,15 +207,12 @@ def _flat_leaves(tree: dict, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ..
     return out
 
 
-def flax_to_torch(variables_np: dict, model) -> Dict[str, torch.Tensor]:
-    """Load JAX ``{"params", "batch_stats"}`` (nested numpy dicts) into the
-    port's ``GPT`` ``model`` with ``strict=True`` and return the state_dict
-    that was loaded. Raises on a missing, unused or misshapen leaf."""
+def _load_flax(variables_np: dict, module, entries: List[MapEntry]) -> Dict[str, torch.Tensor]:
     trees = {c: _flat_leaves(variables_np.get(c, {})) for c in ("params", "batch_stats")}
     used = {c: set() for c in trees}
-    own = model.state_dict()
+    own = module.state_dict()
     state: Dict[str, torch.Tensor] = {}
-    for tkey, coll, fpath, tf in gpt_key_map(model):
+    for tkey, coll, fpath, tf in entries:
         if fpath not in trees[coll]:
             raise KeyError(f"flax tree has no {coll}/{'/'.join(fpath)} (for {tkey})")
         if tkey not in own:
@@ -232,18 +232,19 @@ def flax_to_torch(variables_np: dict, model) -> Dict[str, torch.Tensor]:
     for tkey, value in own.items():
         if tkey.endswith(".num_batches_tracked"):
             state[tkey] = torch.zeros_like(value)
-    model.load_state_dict(state, strict=True)
+    module.load_state_dict(state, strict=True)
     return state
 
 
-def torch_to_flax(state_dict: Dict[str, torch.Tensor], model) -> dict:
-    """The port's ``GPT`` state_dict -> JAX ``{"params", "batch_stats"}`` as
-    nested numpy dicts. Raises on a torch key that has no flax leaf."""
+def _to_flax_tree(state_dict: Dict[str, torch.Tensor], entries: List[MapEntry],
+                  strict: bool) -> dict:
     out = {"params": {}, "batch_stats": {}}
     mapped = set()
-    for tkey, coll, fpath, tf in gpt_key_map(model):
+    for tkey, coll, fpath, tf in entries:
         if tkey not in state_dict:
-            raise KeyError(f"state_dict is missing {tkey}")
+            if strict:
+                raise KeyError(f"state_dict is missing {tkey}")
+            continue
         node = out[coll]
         for p in fpath[:-1]:
             node = node.setdefault(p, {})
@@ -252,6 +253,35 @@ def torch_to_flax(state_dict: Dict[str, torch.Tensor], model) -> dict:
     extra = sorted(
         k for k in state_dict if k not in mapped and not k.endswith(".num_batches_tracked")
     )
-    if extra:
+    if extra and strict:
         raise KeyError(f"state_dict keys with no flax counterpart: {extra}")
     return out
+
+
+def flax_to_torch(variables_np: dict, model) -> Dict[str, torch.Tensor]:
+    """Load JAX ``{"params", "batch_stats"}`` (nested numpy dicts) into the
+    port's ``GPT`` ``model`` with ``strict=True`` and return the state_dict
+    that was loaded. Raises on a missing, unused or misshapen leaf."""
+    return _load_flax(variables_np, model, gpt_key_map(model))
+
+
+def torch_to_flax(state_dict: Dict[str, torch.Tensor], model, strict: bool = True) -> dict:
+    """The port's ``GPT`` state_dict -> JAX ``{"params", "batch_stats"}`` as
+    nested numpy dicts. Raises on a torch key that has no flax leaf or a
+    leaf with no torch key; with ``strict=False`` it leaves out the leaves
+    ``state_dict`` lacks and ignores its other keys (another config's
+    checkpoint, grafted by ``checkpoint.load_params_only``)."""
+    return _to_flax_tree(state_dict, gpt_key_map(model), strict)
+
+
+def yolox_flax_to_torch(variables_np: dict, yolox) -> Dict[str, torch.Tensor]:
+    """``flax_to_torch`` for a ``NeedleYOLOX`` alone: the JAX ``yolox``
+    subtree (``{"params", "batch_stats"}`` with ``backbone`` and ``head``)
+    into the port's ``yolox`` module, strictly."""
+    return _load_flax(variables_np, yolox, yolox_key_map(yolox.variant))
+
+
+def yolox_torch_to_flax(state_dict: Dict[str, torch.Tensor], yolox) -> dict:
+    """``torch_to_flax`` for a ``NeedleYOLOX`` alone, strictly: the JAX
+    ``yolox`` subtree, as ``scripts/port_yolox_weights.py`` writes it."""
+    return _to_flax_tree(state_dict, yolox_key_map(yolox.variant), True)

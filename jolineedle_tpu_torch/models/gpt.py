@@ -151,6 +151,7 @@ class GPT(nn.Module):
         dropout: float = 0.0,
         detector_conf_threshold: float = 0.5,
         compute_dtype: torch.dtype = torch.float32,
+        no_recurrent_embedding: bool = False,
         device=None,
     ):
         super().__init__()
@@ -165,6 +166,9 @@ class GPT(nn.Module):
         self.decoder_pos_encoding = decoder_pos_encoding
         self.detector_conf_threshold = detector_conf_threshold
         self.compute_dtype = compute_dtype
+        #: The rollout runs the full forward over the whole history every
+        #: step instead of the KV-cache decode (``train/rollout.py``).
+        self.no_recurrent_embedding = no_recurrent_embedding
 
         self.wte = nn.Embedding(n_actions, n_embd)
         if not decoder_pos_encoding:
@@ -217,6 +221,7 @@ class GPT(nn.Module):
             dropout=model_config.dropout,
             detector_conf_threshold=model_config.detector_conf_threshold,
             compute_dtype=dtype,
+            no_recurrent_embedding=getattr(model_config, "no_recurrent_embedding", False),
             device=device,
         )
 

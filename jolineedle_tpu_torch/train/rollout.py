@@ -1,4 +1,4 @@
-"""The glimpse rollout: KV-cache decode, action choice and env step per step.
+"""The glimpse rollout: decode, action choice and env step per step.
 
 The counterparts of ``Trainer._rollout_scan`` (``trainer.py:484-635``), of
 the batched eval rollout (``reinforce.py:509-532``) and of
@@ -10,6 +10,15 @@ host integer, and sampling is Gumbel-max on uniforms drawn from an explicit
 ``torch.Generator``, so nothing in the loop waits on the card. It runs under
 ``torch.no_grad``: the serving path needs no gradient, and the fused conv
 kernels have no backward.
+
+Each step decodes one token against a KV cache (``GPT.decode_step``), or,
+for a model with ``no_recurrent_embedding`` (``--no-recurrent-embedding``),
+runs the full teacher-forced forward over the zero-padded history of all
+``max_ep_len`` steps and takes the logits of the current one
+(``trainer.py:516-567``): ``max_ep_len`` times the work, the same numbers,
+an equivalence oracle for the cache. Causal attention makes the logits at
+step t depend on tokens up to t only, so the padding is inert. Both
+branches draw the same random numbers in the same order.
 """
 
 from __future__ import annotations
@@ -54,14 +63,27 @@ def rollout(
     state, patches, _ = env.reset(positions=positions, generator=generator)
     if classes is None:
         classes = torch.zeros(B, dtype=torch.long, device=dev)
-    cache = model.init_cache(classes)
+    full_prefix = model.no_recurrent_embedding
+    if full_prefix:
+        T = env.max_ep_len
+        hist_patches = patches.new_zeros((B, T) + patches.shape[2:])
+        hist_actions = torch.zeros((B, T), dtype=torch.long, device=dev)
+        hist_positions = state.positions.new_zeros((B, T, 2))
+    else:
+        cache = model.init_cache(classes)
     init_positions = state.positions
     action = torch.zeros(B, dtype=torch.long, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     ys = {k: [] for k in ("rewards", "logprobs", "entropies", "logit_masks", "alive",
                           "positions", *collect)}
     for t in range(env.max_ep_len):
-        logits, cache = model.decode_step(cache, patches[:, 0], action, state.positions, t)
+        if full_prefix:
+            hist_patches[:, t] = patches[:, 0]
+            hist_actions[:, t] = action
+            hist_positions[:, t] = state.positions
+            logits = model(hist_patches, hist_actions, classes, hist_positions)[0][:, t]
+        else:
+            logits, cache = model.decode_step(cache, patches[:, 0], action, state.positions, t)
         logits = logits.float()
         if sample:
             u = torch.rand(logits.shape, generator=generator, device=dev)

@@ -1,5 +1,5 @@
 """A fresh port model is initialised as the JAX package initialises its GPT,
-and the flag the port does not implement is refused.
+and ``--no-recurrent-embedding`` trains and serves.
 
 - ``models/init.py``: for every leaf that ``models/bridge.py`` maps, the mean
   and standard deviation of a fresh port model (torch seed 0) against those
@@ -7,8 +7,11 @@ and the flag the port does not implement is refused.
   embeddings; the values differ (other random streams), the distributions
   must not. Constant leaves (biases, norms, running statistics) must be
   equal exactly.
-- ``--no-recurrent-embedding`` raises "not yet ported" in the train CLI and
-  in ``infer`` (from a model directory whose ``config.json`` sets it).
+- ``--no-recurrent-embedding`` runs in the train CLI (one supervised
+  iteration and its test on the CPU; one REINFORCE iteration, whose sampled
+  train rollout is full-prefix) and in ``infer`` (one image served from the
+  run directory, whose ``config.json`` sets it), through the full-prefix
+  rollout: the KV-cache decode is never called.
 """
 
 import json
@@ -120,29 +123,77 @@ def test_init_distributions_by_kind(inits):
     assert float(w.abs().max()) <= 2 * np.sqrt(1 / w[0].numel()) / 0.87962566103423978
 
 
-def _refused_flags(tmp_path):
+def _full_prefix_flags(tmp_path):
     flags = list(CLI)
     flags[flags.index("--dataset-dir") + 1] = str(tmp_path / "data")
     flags[flags.index("--work-dir") + 1] = str(tmp_path / "out")
-    return flags + ["--no-recurrent-embedding", "--env-name", "norec"]
+    return flags + ["--no-recurrent-embedding", "--env-name", "norec", "--max-iters", "2",
+                    "--test-every", "1000", "--test-samples", "1", "--batch-size", "2",
+                    "--max-det-patches", "4", "--max-boxes", "4"]
 
 
-def test_no_recurrent_embedding_is_refused(tmp_path):
-    """The full-prefix rollout is not ported: the train CLI and ``infer``
-    (on a model directory whose config.json sets the flag) raise instead of
-    running the KV-cache decode in its place."""
+def test_no_recurrent_embedding_trains_and_serves(tmp_path, monkeypatch):
+    """The train CLI takes one iteration and its final test (whose eval
+    rollouts are full-prefix), then ``infer`` serves one image from the run
+    directory; neither calls the KV-cache decode."""
+    from PIL import Image
+
+    from jolineedle_tpu_torch.data.toy import generate_toy_dataset
     from jolineedle_tpu_torch.infer import get_infer_args, infer
     from jolineedle_tpu_torch.main import main
 
-    flags = _refused_flags(tmp_path)
-    with pytest.raises(NotImplementedError,
-                       match="--no-recurrent-embedding is not yet ported"):
-        main(tconfig.get_args(flags), device="cpu")
+    def no_cache(*args, **kwargs):
+        raise AssertionError("the full-prefix rollout ran the KV-cache decode")
 
-    t_train, t_model = tconfig.args_to_config(tconfig.get_args(flags))
-    assert t_model.no_recurrent_embedding
-    tconfig.save_config(t_model, t_train)
+    monkeypatch.setattr(TorchGPT, "init_cache", no_cache)
+    monkeypatch.setattr(TorchGPT, "decode_step", no_cache)
+    generate_toy_dataset(tmp_path / "data", n_train=4, n_test=2, image_size=(2 * P, 3 * P),
+                         seed=0, box_size=(12, 40))
+    trainer = main(tconfig.get_args(_full_prefix_flags(tmp_path)), device="cpu")
+    assert trainer.model.no_recurrent_embedding and trainer.step == 1
     model_dir = tmp_path / "out" / "norec"
-    assert json.loads((model_dir / "config.json").read_text())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        infer(get_infer_args(["--model-dir", str(model_dir)]), device="cpu")
+    assert json.loads((model_dir / "config.json").read_text())["model"][
+        "no_recurrent_embedding"]
+
+    image = sorted((tmp_path / "data" / "images").iterdir())[0]
+    Image.open(image).save(tmp_path / "img.png")
+    (tmp_path / "img.txt").write_text("0 10 10 70 40\n")
+    (tmp_path / "list.txt").write_text("img.png img.txt\n")
+    metrics = infer(get_infer_args(["--model-dir", str(model_dir), "--dataset",
+                                    str(tmp_path / "list.txt")]), device="cpu")
+    assert metrics["episode_length"] and all(np.isfinite(v[0]) for v in metrics.values())
+
+
+def test_no_recurrent_embedding_trains_reinforce(tmp_path, monkeypatch):
+    """The REINFORCE train CLI takes one iteration with the flag: its sampled
+    train rollout and its final test's rollouts are full-prefix (the
+    KV-cache decode is never called), the loss is finite and the update
+    moves the decoder."""
+    from jolineedle_tpu_torch.data.toy import generate_toy_dataset
+    from jolineedle_tpu_torch.main import main
+
+    def no_cache(*args, **kwargs):
+        raise AssertionError("the full-prefix rollout ran the KV-cache decode")
+
+    monkeypatch.setattr(TorchGPT, "init_cache", no_cache)
+    monkeypatch.setattr(TorchGPT, "decode_step", no_cache)
+    generate_toy_dataset(tmp_path / "data", n_train=4, n_test=2, image_size=(2 * P, 3 * P),
+                         seed=0, box_size=(12, 40))
+    flags = _full_prefix_flags(tmp_path)
+    flags[flags.index("--training-mode") + 1] = "reinforce"
+    flags[flags.index("--max-iters") + 1] = "1"
+    torch.manual_seed(0)
+    trainer = main(tconfig.get_args(flags + ["--seed", "0"]), device="cpu")
+    assert trainer.model.no_recurrent_embedding
+    assert trainer.step == 1 and trainer.optimizer.updates == 1
+    metrics = trainer.last_train_metrics
+    assert "action_loss" in metrics
+    assert np.isfinite([float(v) for v in metrics.values()]).all()
+    trained = torch.load(tmp_path / "out" / "norec" / "checkpoint.pt", weights_only=True)
+    torch.manual_seed(0)
+    t_train, t_model = tconfig.args_to_config(tconfig.get_args(flags + ["--seed", "0"]))
+    init = TorchGPT.from_config(t_model, t_actions_info(t_train), device="cpu").state_dict()
+    assert any(not torch.equal(init[k], v) for k, v in trained.items() if k.startswith("h."))
+    # the same fresh model: the embedder's BN statistics never move
+    assert all(torch.equal(init[k], v) for k, v in trained.items()
+               if k.startswith("gpt_backbone_net.") and "running" in k)

@@ -1,5 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package (nor
-does ``chip_smoke.py``, which drives it on the card), its entry points refuse
+"""The port stands alone: it imports neither JAX nor the JAX package, nor
+flax's ``msgpack`` and ``ml_dtypes`` (nor does ``chip_smoke.py``, which drives it on the card), its entry points refuse
 to continue on the CPU when the card is asked for and absent, and its weight
 bridge carries every leaf both ways.
 """
@@ -50,16 +50,18 @@ PORT_MODULES = sorted(
 
 
 def test_every_module_imports_without_jax():
-    """With ``jax`` and ``jolineedle_tpu`` blocked, every port module (the
-    train CLI and the smoke-conv script among them) and ``chip_smoke.py``
-    import, and neither package (nor a submodule of either) is loaded
-    after."""
+    """With ``jax``, ``flax``, ``msgpack``, ``ml_dtypes`` and
+    ``jolineedle_tpu`` blocked, every port module (the train CLI, the
+    checkpoint reader and the scripts among them) and ``chip_smoke.py``
+    import, and none of them (nor a submodule) is loaded after."""
     for name in ("ops.conv", "ops.attention", "main", "scripts.smoke_conv",
-                 "train.reinforce"):
+                 "train.reinforce", "checkpoint", "models.port",
+                 "scripts.port_yolox_weights"):
         assert f"jolineedle_tpu_torch.{name}" in PORT_MODULES
     code = (
         "import importlib, importlib.util, sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'jolineedle_tpu'):\n"
+        "blocked = ('jax', 'jaxlib', 'flax', 'msgpack', 'ml_dtypes', 'jolineedle_tpu')\n"
+        "for name in blocked:\n"
         "    sys.modules[name] = None\n"
         f"for name in {PORT_MODULES!r}:\n"
         "    importlib.import_module(name)\n"
@@ -67,7 +69,6 @@ def test_every_module_imports_without_jax():
         "smoke = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(smoke)\n"
         "smoke.import_port()\n"
-        "blocked = ('jax', 'jaxlib', 'flax', 'jolineedle_tpu')\n"
         "loaded = [n for n, m in sys.modules.items() if m is not None\n"
         "          and n.split('.')[0] in blocked]\n"
         "print('LOADED', loaded)\n"
