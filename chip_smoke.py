@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port, ``jolineedle_tpu_torch``, on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--device-data-cache auto|on|off]
 
 Phases, each of which raises (and the script exits non-zero) on a failure:
 
@@ -59,21 +59,39 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
 8. smoke conv: ``python -m jolineedle_tpu_torch.scripts.smoke_conv`` run
    in-process (the driver of the plain 3x3 conv kernel), its error against
    ``F.conv2d`` checked;
-9. train: a toy dataset of 2688x2688 images (a 6x6 grid of 448 px patches)
-   written by the port's generator, then the train CLI
-   (``jolineedle_tpu_torch.main``, REINFORCE) at the flagship config with
-   batch 16, gradient accumulation 2, 4 iterations and its final test; the
+9. pool: a toy dataset of 2688x2688 images (a 6x6 grid of 448 px patches)
+   written by the port's generator, the data of phases 9-11; its training
+   set as the device pool (``data/device_pool.py``) on the card, its bytes,
+   decode and build times and peak memory, its pixels against the decoded
+   images; the pool's gathers (``gather_pool_patches``, ``aug_canvases`` +
+   ``gather_canvas_patches`` with rotation, translation and both) against
+   the host's gather of the same ``build_supervised_batch`` rows from one
+   seed at B = 16, and the REINFORCE images (``gather_pool_images``, and
+   ``aug_canvases`` at ``out_hw`` = the fixed training shape) against the
+   host's padded images, all bit for bit and each timed (median of 20 event
+   pairs) beside its bound; then, in float32 at B = 4, one train step of
+   each trainer fed from the pool and one fed streamed pixels, from one
+   seed on copies of one model, with and without both augmentations: the
+   losses, and REINFORCE's returns, equal within rtol 1e-6;
+10. train: the train CLI (``jolineedle_tpu_torch.main``, REINFORCE) at the
+   flagship config with batch 16, gradient accumulation 2, 4 iterations and
+   its final test, under ``--device-data-cache auto`` (the default; the
+   script's own ``--device-data-cache`` is passed on): it must train from
+   the pool (stream, under ``off``); the
    losses must be finite, both optimizer groups and the detector's BN
    statistics must move (the embedder's must not), the checkpoint must be
    written, and a resumed run must take one more iteration. The launch
    counters must read exactly: per train step, the rollout's conv launches
    (the module tree's count) and 3 flash launches (one per layer of the one
    teacher-forced forward) and no conv launch in the differentiated
-   forwards. Then two more steps give the phase times (rollout, loss
-   forward+backward, detection, optimizer, by CUDA events), the peak
-   memory, and a ``torch.profiler`` busy share of one step;
-10. supervised: the train CLI with ``--training-mode supervised`` on the
-   same toy dataset, batch 16, accumulation 2, dropout 0.1: 4 iterations
+   forwards. Then two more steps on each route (the pool's batch, then the
+   streamed one) give the phase times (upload, rollout, loss
+   forward+backward, detection, optimizer, by CUDA events), the bytes each
+   uploads, the peak memory, and a ``torch.profiler`` busy share and
+   device operations of one step per route;
+11. supervised: the train CLI with ``--training-mode supervised`` on the
+   same toy dataset (from the pool, as in phase 10), batch 16, accumulation
+   2, dropout 0.1: 4 iterations
    (``--max-iters 5``), a test of 16 sampled test images after the last, the
    final test, then a resumed run of one iteration. The losses and the test
    metrics must be finite; both optimizer groups and the BN statistics of
@@ -83,9 +101,9 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    and no conv launch (every conv of a train step runs under autograd);
    per test the conv kernels of the eval rollouts, of the eval detections
    and of the teacher-forced eval's embedder and detector, and its 3 flash
-   launches per batch of 16 images. Then two more steps give the phase
-   times (upload, decision, detection, optimizer), the peak memory and a
-   ``torch.profiler`` busy share.
+   launches per batch of 16 images. Then two more steps on each route give
+   the phase times (upload, decision, detection, optimizer), the bytes each
+   uploads, the peak memory and a ``torch.profiler`` busy share.
 
 Phase 3 also holds the flash-attention kernel against its plain versions
 (output, log-sum-exp and gradients) at the decoder's shape [16, 3, 21, 16]
@@ -114,6 +132,7 @@ name and power limit.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import os
@@ -189,6 +208,8 @@ FULL_PREFIX_RUNS = [(FULL_PREFIX_B, torch.float32), (1, torch.bfloat16)]
 # Device operations of one B = 16 train step when the flash wrapper still
 # copied q, k and v in and o out (PERF.md section 5): 4 copies per layer.
 TRAIN_STEP_OPS_WITH_COPIES = 28_328
+# The float32 route-equality steps of the pool phase run at this batch.
+ROUTE_B = 4
 # The plain 3x3 conv: the smoke script's default and the nano stem.
 PLAIN_CONV_SHAPES = [(8, 56, 56, 16, 32), (N_PATCHES, PATCH // 2, PATCH // 2, 12, 16)]
 # The dense 3x3 convs of a wider variant, held and timed beside the path.
@@ -196,6 +217,7 @@ WIDE_VARIANT = "yolox-s"
 KERNEL_NAMES = ("dwblock_bn_silu", "conv3x3_bn_silu", "flash_attention", "conv3x3")
 
 CARD = ""  # "name, power limit" from nvidia-smi, set in main()
+DEVICE = "cuda"  # where the pool phase puts its pool, batches and models
 
 
 def say(text: str) -> None:
@@ -1013,11 +1035,12 @@ def profile_run(what, untraced_ms, fn, top=8, unit=("rollout step", STEPS)):
     the same work's wall time without the profiler (which adds host time of
     its own), the device operations per ``unit``, the ``top`` kernels by
     device time, and the bf16 port kernels' totals. Returns the device
-    operations per ``unit`` (None when nothing was traced)."""
+    operations per ``unit`` and a Counter of their names (None, None when
+    nothing was traced)."""
     spans = device_spans(fn)
     if not spans:
         say(f"profile {what}: the profiler traced no device time; busy share not measured")
-        return None
+        return None, None
     busy_us, end = 0.0, -math.inf
     by_name = defaultdict(lambda: [0, 0.0])
     for s, e, name in spans:
@@ -1026,9 +1049,11 @@ def profile_run(what, untraced_ms, fn, top=8, unit=("rollout step", STEPS)):
             end = e
         by_name[name][0] += 1
         by_name[name][1] += e - s
+    copies = [e - s for s, e, name in spans if name.startswith("Memcpy")]
     say(f"profile {what}: device busy {busy_us / 1e3:.2f} ms of {untraced_ms:.2f} ms"
         f" untraced wall ({busy_us / 1e3 / untraced_ms:.1%}),"
-        f" {len(spans) / unit[1]:.0f} device operations per {unit[0]}")
+        f" {len(spans) / unit[1]:.0f} device operations per {unit[0]} ({len(copies) / unit[1]:.0f}"
+        f" of them memory copies, {sum(copies) / 1e3 / unit[1]:.2f} ms)")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         say(f"  {us / 1e3:9.3f} ms {n:6d}x {name[:100]}")
     for kernel, pattern in PORT_KERNEL_SYMBOLS.items():
@@ -1036,7 +1061,7 @@ def profile_run(what, untraced_ms, fn, top=8, unit=("rollout step", STEPS)):
         if hits:
             say(f"  port kernel {kernel}: {sum(us for _, us in hits) / 1e3:.3f} ms in"
                 f" {sum(n for n, _ in hits)} launches")
-    return len(spans) / unit[1]
+    return len(spans) / unit[1], Counter({name: n for name, (n, _) in by_name.items()})
 
 
 # --- phase 6: the JAX package's files ------------------------------------------------
@@ -1257,8 +1282,8 @@ def smoke_conv_phase(port):
     return counts
 
 
-# --- phase 9: train ----------------------------------------------------------------
-def train_flags(data_dir, work_dir, seed):
+# --- phase 9: the device data pool ----------------------------------------------------
+def train_flags(data_dir, work_dir, seed, cache="auto"):
     flags = list(FLAGSHIP)
     flags[flags.index("--dataset-dir") + 1] = str(data_dir)
     flags[flags.index("--batch-size") + 1] = str(TRAIN_B)
@@ -1266,7 +1291,250 @@ def train_flags(data_dir, work_dir, seed):
         "--work-dir", str(work_dir), "--seed", str(seed), "--env-name", "train",
         "--gradient-accumulation", str(TRAIN_ACCUM), "--max-iters", str(TRAIN_ITERS),
         "--test-every", "1000", "--test-samples", "2", "--num-workers", "4",
+        "--device-data-cache", cache,
     ]
+
+
+def with_augs(dataset, augs):
+    """A shallow copy of ``dataset`` with the geometric augmentations
+    ``augs`` (a subset of {"rotate", "translate"}) on."""
+    dataset = copy.copy(dataset)
+    dataset.rotations, dataset.translations = "rotate" in augs, "translate" in augs
+    return dataset
+
+
+def env_batch(port, dataset, config, indices, seed, with_pixels):
+    """``ReinforceTrainer._build_env_batch`` of ``dataset`` without a
+    trainer: it reads only the config, the dataset and the fixed shape."""
+    owner = SimpleNamespace(config=config, train_dataset=dataset,
+                            fixed_shape=port.fixed_training_shape(dataset, PATCH))
+    return port.ReinforceTrainer._build_env_batch(owner, indices, seed, with_pixels=with_pixels)
+
+
+def to_card(batch):
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+
+
+def same_on_card(what, got, want):
+    """uint8 device pixels against the host's, bit for bit."""
+    want = torch.from_numpy(np.array(want)).to(DEVICE)  # a writable copy
+    require(got.dtype == want.dtype and got.shape == want.shape,
+            f"{what}: {got.dtype} {tuple(got.shape)} against {want.dtype} {tuple(want.shape)}")
+    n_diff = int((got != want).sum())
+    require(n_diff == 0, f"{what}: {n_diff} of {want.numel()} bytes differ from the host's")
+
+
+def timed_gather(what, fn, out):
+    """The median of 20 event-pair timings of ``fn`` beside its bound: each
+    output byte read once from its source and written once."""
+    ms = median_ms(fn)
+    bound_ms = 2 * out.numel() * out.element_size() / HBM_BYTES_PER_S * 1e3
+    say(f"  {what}: {ms:.4f} ms on the card, bound"
+        f" {bound_ms:.4f} ms (bytes, {2 * out.numel() / 1e6:.1f} MB)")
+    return ms
+
+
+def pool_phase(port, seed, toy):
+    """The device pool of the toy training set on the card: its bytes,
+    decode and build times and peak memory; the three gathers against the
+    host's gather of the same ``build_supervised_batch`` rows from one seed
+    (B = TRAIN_B; augmentations off, rotate, translate and both) and
+    ``aug_canvases`` at REINFORCE's fixed training shape against the host's
+    padded images, all bit for bit and each timed; then, in float32, one
+    train step of each trainer fed from the pool against one fed streamed
+    pixels, from one seed on copies of one model, with and without the
+    augmentations: equal losses (and REINFORCE returns) within rtol 1e-6."""
+    from jolineedle_tpu_torch.data import device_pool as dp
+    from jolineedle_tpu_torch.train.batching import build_supervised_batch
+
+    flags = train_flags(toy, toy.parent / "pool", seed)
+    train_config, model_config = port.tconfig.args_to_config(port.tconfig.get_args(flags))
+    dataset, _ = port.build_both_datasets(train_config, model_config, toy)
+    start = time.perf_counter()
+    for i in range(len(dataset)):
+        dataset.load_image(i)
+    decode_s = time.perf_counter() - start
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    pool = dp.DeviceImagePool.build(dataset, DEVICE)
+    build_s = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated() - base
+    side = GRID * PATCH
+    require(tuple(pool.images.shape) == (len(dataset), side, side, 3)
+            and pool.images.device.type == DEVICE and pool.images.dtype == torch.uint8,
+            f"pool: {pool.images.dtype} {tuple(pool.images.shape)} on {pool.images.device}")
+    for i in range(len(dataset)):
+        same_on_card(f"pool image {i}", pool.images[i], dataset.load_image(i))
+    say(f"pool: {len(dataset)} images, {pool.nbytes / 1e6:.1f} MB on the card, built in"
+        f" {build_s * 1e3:.1f} ms after {decode_s * 1e3:.1f} ms of decoding; peak memory"
+        f" +{peak / 2**30:.3f} GiB")
+
+    indices = [i % len(dataset) for i in range(TRAIN_B)]
+    for augs in ((), ("rotate",), ("translate",), ("rotate", "translate")):
+        ds = with_augs(dataset, augs)
+        with_px = build_supervised_batch(ds, indices, train_config, np.random.default_rng(seed))
+        no_px = build_supervised_batch(ds, indices, train_config, np.random.default_rng(seed),
+                                       with_pixels=False)
+        dev = to_card(no_px)
+        name = "+".join(augs) or "no augmentation"
+        if augs:
+            canvas = lambda: dp.aug_canvases(pool.images, dev["image_idx"], dev.get("aug_rot"),
+                                             dev.get("aug_shift"), dev.get("base_hw"))
+            canvases = canvas()
+            gather = lambda pos: dp.gather_canvas_patches(canvases, dev[pos], PATCH)
+        else:
+            gather = lambda pos: dp.gather_pool_patches(pool.images, dev["image_idx"], dev[pos],
+                                                        PATCH)
+        patches = gather("positions")
+        same_on_card(f"{name}: decision patches", patches, with_px["patches"])
+        det = gather("yolox_positions") * dev["yolox_valid"][:, :, None, None, None].to(torch.uint8)
+        same_on_card(f"{name}: detector patches", det, with_px["patches_yolox"])
+        say(f"pool gathers, supervised B={TRAIN_B}, {name}: the decision and the detector"
+            " patches bit-equal to the host's gather of the same rows")
+        if augs:
+            timed_gather(f"aug_canvases {tuple(canvases.shape)}", canvas, canvases)
+        timed_gather(f"decision patches {tuple(patches.shape)}", lambda: gather("positions"),
+                     patches)
+        timed_gather(f"detector patches {tuple(det.shape)}", lambda: gather("yolox_positions"),
+                     det)
+
+    for augs in ((), ("rotate", "translate")):
+        ds = with_augs(dataset, augs)
+        fixed = port.fixed_training_shape(ds, PATCH)
+        with_px = env_batch(port, ds, train_config, indices, seed, with_pixels=True)
+        no_px = env_batch(port, ds, train_config, indices, seed, with_pixels=False)
+        require(np.array_equal(with_px["bboxes"], no_px["bboxes"]), "REINFORCE pool batch: boxes")
+        dev = to_card(no_px)
+        name = "+".join(augs) or "no augmentation"
+        if augs or tuple(pool.images.shape[1:3]) != fixed:
+            images = lambda: dp.aug_canvases(pool.images, dev["image_idx"], dev.get("aug_rot"),
+                                             dev.get("aug_shift"), dev.get("base_hw"),
+                                             out_hw=fixed)
+            how = f"aug_canvases at out_hw {fixed}"
+        else:
+            images = lambda: dp.gather_pool_images(pool.images, dev["image_idx"])
+            how = "gather_pool_images"
+        out = images()
+        same_on_card(f"REINFORCE, {name}: {how}", out, with_px["image"])
+        say(f"pool images, REINFORCE B={TRAIN_B}, {name}: {how} bit-equal to the host's"
+            " padded images of the same rows")
+        timed_gather(f"{how} {tuple(out.shape)}", images, out)
+        upload_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            torch.from_numpy(with_px["image"]).to(DEVICE)
+            torch.cuda.synchronize()
+            upload_ms.append((time.perf_counter() - start) * 1e3)
+        say(f"  the streamed route's upload of the same {with_px['image'].nbytes / 1e6:.1f} MB"
+            f" from pageable memory: {statistics.median(upload_ms):.2f} ms (median of 3)")
+    del canvases, patches, det, out
+    route_equality(port, seed, toy, pool)
+    return pool.nbytes
+
+
+def route_equality(port, seed, toy, pool):
+    """One float32 train step of each trainer fed from ``pool`` and one fed
+    streamed pixels, from one seed on copies of one model, without and with
+    both augmentations: the losses (and REINFORCE's returns) equal within
+    rtol 1e-6. Each route's step wall time is printed beside the other's."""
+    from jolineedle_tpu_torch.train.batching import build_supervised_batch
+
+    indices = list(range(ROUTE_B))
+    for mode, cls in (("supervised", port.SupervisedTrainer), ("reinforce", port.ReinforceTrainer)):
+        flags = train_flags(toy, toy.parent / "route", seed)
+        for flag, value in (("--training-mode", mode), ("--compute-dtype", "float32"),
+                            ("--batch-size", ROUTE_B), ("--env-name", "route")):
+            flags[flags.index(flag) + 1] = str(value)
+        train_config, model_config = port.tconfig.args_to_config(port.tconfig.get_args(flags))
+        dataset, test_dataset = port.build_both_datasets(train_config, model_config, toy)
+        for augs in ((), ("rotate", "translate")):
+            ds = with_augs(dataset, augs)
+            torch.manual_seed(seed)
+            model = port.GPT.from_config(model_config, port.get_actions_info(train_config),
+                                         device=DEVICE)
+            results = {}
+            for route in ("pool", "stream"):
+                trainer = cls(train_config, copy.deepcopy(model), None, ds, test_dataset,
+                              device=DEVICE)
+                trainer.pool = pool if route == "pool" else None
+                if mode == "supervised":
+                    batch = build_supervised_batch(ds, indices, train_config,
+                                                   np.random.default_rng(seed),
+                                                   with_pixels=route == "stream")
+                else:
+                    batch = trainer._build_env_batch(indices, seed, with_pixels=route == "stream")
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                metrics = trainer.train_step(batch)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - start) * 1e3
+                results[route] = ({k: float(metrics[k]) for k in ("loss", "returns")
+                                   if k in metrics}, wall_ms)
+                del trainer
+            (got, got_ms), (want, want_ms) = results["pool"], results["stream"]
+            name = f"{mode} B={ROUTE_B} float32, {'+'.join(augs) or 'no augmentation'}"
+            for k, v in want.items():
+                require(math.isfinite(v) and math.isclose(got[k], v, rel_tol=1e-6, abs_tol=0.0),
+                        f"route equality, {name}: {k} {got[k]!r} from the pool, {v!r} streamed")
+            say(f"route equality, {name}: " + ", ".join(
+                f"{k} {got[k]:.6f} from the pool, {v:.6f} streamed" for k, v in want.items())
+                + f" (first-step wall {got_ms:.2f} / {want_ms:.2f} ms)")
+            del model
+
+
+def timed_routes(port, trainer, batches, what, per_step, upload_bytes, rounds=3):
+    """``rounds`` rounds of two steps (one that accumulates, one that
+    updates) on each route's batch in turn (``batches``: route -> host
+    batch), each step ending in a device sync: wall ms, device-clock phases,
+    the bytes it uploads, peak memory and exact launches, and each route's
+    median wall; then one profiled accumulating step of each route. Returns
+    {route: device operations per step}."""
+    if trainer.optimizer.mini_step:
+        trainer.train_step(next(iter(batches.values())))  # start on an accumulating step
+    walls = defaultdict(list)
+    for _ in range(rounds):
+        for route, batch in batches.items():
+            for _ in range(2):
+                trainer.phase_events = []
+                updates = trainer.optimizer.updates
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches(port)
+                start = time.perf_counter()
+                trainer.train_step(batch)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - start) * 1e3
+                walls[route].append(step_ms)
+                check_launches(port, f"one {what} ({route})", per_step)
+                marks = trainer.phase_events
+                trainer.phase_events = None
+                phases = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(marks, marks[1:])}
+                kind = "update" if trainer.optimizer.updates > updates else "accumulate"
+                say(f"{what} ({route}, {kind}): {step_ms:.2f} ms wall; device-clock phases "
+                    + ", ".join(f"{k} {v:.2f} ms" for k, v in phases.items())
+                    + f" (uploads {upload_bytes(batch) / 1e6:.4f} MB); peak memory"
+                    f" {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    say(f"{what}: median wall " + ", ".join(
+        f"{route} {statistics.median(t):.2f} ms (of {len(t)})" for route, t in walls.items()))
+    ops, names = {}, {}
+    for route, batch in batches.items():
+        ops[route], names[route] = profile_run(
+            f"{what} ({route}, accumulate)", statistics.median(walls[route]),
+            lambda: trainer.train_step(batch), unit=("train step", 1))
+        trainer.train_step(batch)  # the update that ends the accumulation
+    if len(names) == 2 and all(n is not None for n in names.values()):
+        diff = names["stream"]
+        diff.subtract(names["pool"])
+        say(f"{what}: device operations the streamed step adds (+) or drops (-) against the"
+            " pool's: " + "; ".join(f"{n:+d}x {name[:80]}" for name, n in
+                                    sorted(diff.items(), key=lambda kv: -abs(kv[1]))[:6] if n))
+    return ops
+
+
+# --- phase 10: train ----------------------------------------------------------------
 
 
 def toy_dataset(port, seed) -> Path:
@@ -1282,11 +1550,24 @@ def toy_dataset(port, seed) -> Path:
     return root / "toy"
 
 
-def train_phase(port, seed, toy):
+def require_route(trainer, cache, what):
+    """The route ``--device-data-cache cache`` must take on the toy set,
+    which fits the budget: the pool, unless ``off``."""
+    if cache == "off":
+        require(trainer.pool is None, f"{what}: --device-data-cache off built a pool")
+        say(f"{what}: streamed the pixels (--device-data-cache off)")
+    else:
+        require(trainer.pool is not None and trainer.pool.images.device.type == DEVICE,
+                f"{what}: --device-data-cache {cache} did not train from the device pool")
+        say(f"{what}: trained from the device pool ({list(trainer.pool.images.shape)} uint8,"
+            f" {trainer.pool.nbytes / 1e6:.1f} MB on the card; --device-data-cache {cache})")
+
+
+def train_phase(port, seed, toy, cache):
     """The train CLI (REINFORCE) at the flagship config on the toy dataset;
     returns the launch counts of its runs (train, then resume)."""
     root = toy.parent
-    flags = train_flags(toy, root / "out", seed)
+    flags = train_flags(toy, root / "out", seed, cache)
     train_config, model_config = port.tconfig.args_to_config(port.tconfig.get_args(flags))
     torch.manual_seed(seed)  # as the CLI seeds the model's init
     init = port.GPT.from_config(model_config, port.get_actions_info(train_config),
@@ -1310,6 +1591,7 @@ def train_phase(port, seed, toy):
     require(all(math.isfinite(v) for v in metrics.values()), f"train: non-finite metrics {metrics}")
     require(trainer.step == TRAIN_ITERS and trainer.optimizer.updates == TRAIN_ITERS // TRAIN_ACCUM,
             "train: step and update counts")
+    require_route(trainer, cache, "train")
     test_metrics = json.loads((trainer.checkpoint_dir / "metrics.json").read_text())
     require(all(math.isfinite(v) for v in test_metrics.values()), "train: non-finite test metrics")
 
@@ -1344,31 +1626,19 @@ def train_phase(port, seed, toy):
     say("train: both optimizer groups and the detector's BN statistics moved, the embedder's"
         f" statistics did not; checkpoint written ({sorted(files)})")
 
-    # Phase times of two more steps (the second applies an update).
-    batch = trainer._build_env_batch([i % len(trainer.train_dataset) for i in range(TRAIN_B)],
-                                     seed)
-    for i in range(2):
-        trainer.phase_events = []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches(port)
-        start = time.perf_counter()
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - start) * 1e3
-        check_launches(port, f"one train step B={TRAIN_B}", per_step)
-        marks = trainer.phase_events
-        trainer.phase_events = None
-        phases = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(marks, marks[1:])}
-        say(f"train step B={TRAIN_B} ({'update' if i else 'accumulate'}): {step_ms:.2f} ms wall;"
-            " device-clock phases " + ", ".join(f"{k} {v:.2f} ms" for k, v in phases.items())
-            + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    ops = profile_run(f"train step B={TRAIN_B}", step_ms, lambda: trainer.train_step(batch),
-                      unit=("train step", 1))
-    if ops is not None:
-        say(f"train step B={TRAIN_B}: {ops:.0f} device operations, against"
-            f" {TRAIN_STEP_OPS_WITH_COPIES:,} when the flash wrapper copied q, k, v and o"
-            f" ({ops - TRAIN_STEP_OPS_WITH_COPIES:+.0f}; {-4 * N_LAYER} expected)")
+    # Phase times of more steps on each route: the pool's batch (indices
+    # and geometry) and the streamed one (the padded images).
+    indices = [i % len(trainer.train_dataset) for i in range(TRAIN_B)]
+    routes = ("pool", "stream") if trainer.pool is not None else ("stream",)
+    batches = {r: trainer._build_env_batch(indices, seed, with_pixels=r == "stream")
+               for r in routes}
+    ops = timed_routes(port, trainer, batches, f"train step B={TRAIN_B}", per_step,
+                       lambda b: sum(v.nbytes for v in b.values()))
+    for route, n in ops.items():
+        if n is not None:
+            say(f"train step B={TRAIN_B} ({route}): {n:.0f} device operations, against"
+                f" {TRAIN_STEP_OPS_WITH_COPIES:,} when the flash wrapper copied q, k, v and o"
+                f" ({n - TRAIN_STEP_OPS_WITH_COPIES:+.0f}; {-4 * N_LAYER} expected)")
 
     # One resumed iteration from the checkpoint on disk.
     run_dir = trainer.checkpoint_dir
@@ -1405,7 +1675,7 @@ def sup_test_launches(n_ids: int) -> dict:
     return out
 
 
-def sup_train_phase(port, seed, toy):
+def sup_train_phase(port, seed, toy, cache):
     """The train CLI with ``--training-mode supervised`` at the flagship
     config (dropout 0.1) on the toy dataset: TRAIN_ITERS iterations (the
     supervised loop runs ``--max-iters`` - 1), a test of SUP_TEST_IDS
@@ -1413,10 +1683,10 @@ def sup_train_phase(port, seed, toy):
     set, then a resumed run of one iteration and its final test. Returns
     the launch counts of both runs."""
     from jolineedle_tpu_torch.train.batching import build_supervised_batch
-    from jolineedle_tpu_torch.train.supervised import TRAIN_KEYS
+    from jolineedle_tpu_torch.train.supervised import upload_keys
 
     root = toy.parent
-    flags = train_flags(toy, root / "out", seed)
+    flags = train_flags(toy, root / "out", seed, cache)
     for flag, value in (("--training-mode", "supervised"), ("--dropout", "0.1"),
                         ("--env-name", "sup"), ("--max-iters", TRAIN_ITERS + 1),
                         ("--test-every", TRAIN_ITERS), ("--test-samples", SUP_TEST_IDS)):
@@ -1445,6 +1715,7 @@ def sup_train_phase(port, seed, toy):
             f"supervised train: non-finite metrics {metrics}")
     require(trainer.step == TRAIN_ITERS and trainer.optimizer.updates == TRAIN_ITERS // TRAIN_ACCUM,
             f"supervised train: step {trainer.step}, updates {trainer.optimizer.updates}")
+    require_route(trainer, cache, "supervised train")
     test_metrics = json.loads((trainer.checkpoint_dir / "metrics.json").read_text())
     require(all(math.isfinite(v) for v in test_metrics.values())
             and {"map", "supervised_action_loss", "supervised_map"} <= set(test_metrics),
@@ -1497,34 +1768,18 @@ def sup_train_phase(port, seed, toy):
     say("supervised train: the embedder's and the detector's BN statistics moved; checkpoint"
         f" written ({sorted(files)})")
 
-    # Phase times of two more steps (the second applies an update).
-    batch = build_supervised_batch(
-        trainer.train_dataset, [i % len(trainer.train_dataset) for i in range(TRAIN_B)],
-        trainer.config, np.random.default_rng(seed))
-    upload_mb = sum(batch[k].nbytes for k in TRAIN_KEYS) / 1e6
-    for i in range(2):
-        trainer.phase_events = []
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches(port)
-        start = time.perf_counter()
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - start) * 1e3
-        check_launches(port, f"one supervised train step B={TRAIN_B}", per_step)
-        marks = trainer.phase_events
-        trainer.phase_events = None
-        phases = {name: a.elapsed_time(b) for (_, a), (name, b) in zip(marks, marks[1:])}
-        say(f"supervised train step B={TRAIN_B} ({'update' if i else 'accumulate'}):"
-            f" {step_ms:.2f} ms wall; device-clock phases "
-            + ", ".join(f"{k} {v:.2f} ms" for k, v in phases.items())
-            + f" (upload of {upload_mb:.1f} MB from pageable memory:"
-            f" {upload_mb / phases['upload']:.2f} GB/s); peak memory"
-            f" {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    ops = profile_run(f"supervised train step B={TRAIN_B}", step_ms,
-                      lambda: trainer.train_step(batch), unit=("train step", 1))
-    if ops is not None:
-        say(f"supervised train step B={TRAIN_B}: {ops:.0f} device operations")
+    # Phase times of more steps on each route: the pool's batch (indices,
+    # geometry, labels) and the streamed one (the uint8 patches).
+    indices = [i % len(trainer.train_dataset) for i in range(TRAIN_B)]
+    routes = ("pool", "stream") if trainer.pool is not None else ("stream",)
+    batches = {r: build_supervised_batch(trainer.train_dataset, indices, trainer.config,
+                                         np.random.default_rng(seed), with_pixels=r == "stream")
+               for r in routes}
+    ops = timed_routes(port, trainer, batches, f"supervised train step B={TRAIN_B}", per_step,
+                       lambda b: sum(b[k].nbytes for k in upload_keys(b)))
+    for route, n in ops.items():
+        if n is not None:
+            say(f"supervised train step B={TRAIN_B} ({route}): {n:.0f} device operations")
 
     # One resumed iteration from the checkpoint on disk, and its final test.
     run_dir = trainer.checkpoint_dir
@@ -1550,22 +1805,30 @@ def import_port():
     from jolineedle_tpu_torch.checkpoint import save_model
     from jolineedle_tpu_torch.data.toy import generate_toy_dataset
     from jolineedle_tpu_torch.env.actions import get_actions_info
+    from jolineedle_tpu_torch.main import build_both_datasets
     from jolineedle_tpu_torch.main import main as train_main
     from jolineedle_tpu_torch.models.gpt import GPT
     from jolineedle_tpu_torch.ops import attention as kattn
     from jolineedle_tpu_torch.ops import conv as kconv
     from jolineedle_tpu_torch.ops.kernels import build_kernels
+    from jolineedle_tpu_torch.train.reinforce import ReinforceTrainer, fixed_training_shape
+    from jolineedle_tpu_torch.train.supervised import SupervisedTrainer
 
     return SimpleNamespace(tconfig=tconfig, save_model=save_model,
                            generate_toy_dataset=generate_toy_dataset,
                            get_actions_info=get_actions_info, train_main=train_main, GPT=GPT,
-                           kattn=kattn, kconv=kconv, build_kernels=build_kernels)
+                           kattn=kattn, kconv=kconv, build_kernels=build_kernels,
+                           build_both_datasets=build_both_datasets,
+                           ReinforceTrainer=ReinforceTrainer, SupervisedTrainer=SupervisedTrainer,
+                           fixed_training_shape=fixed_training_shape)
 
 
 def main(argv=None) -> int:
     global CARD
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device-data-cache", choices=("auto", "on", "off"), default="auto",
+                        help="the train CLI's flag in both train phases (off: stream the pixels)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -1620,15 +1883,17 @@ def main(argv=None) -> int:
     supervised_reference(models, state, args.seed)
     del models, model
 
-    # 5-10. the paths, each read on its own
+    # 5-11. the paths, each read on its own, and the device pool
     toy = toy_dataset(port, args.seed)
     by_path = {"serve": serve_phase(port, model_dir, args.seed),
                "jax_files": jax_files_phase(port, model_dir, args.seed),
                "full_prefix": full_prefix_phase(port, model_dir, state, args.seed),
-               "smoke_conv": Counter(smoke_conv_phase(port)),
-               "train": train_phase(port, args.seed, toy)}
+               "smoke_conv": Counter(smoke_conv_phase(port))}
+    pool_phase(port, args.seed, toy)
     torch.cuda.empty_cache()
-    by_path["supervised"] = sup_train_phase(port, args.seed, toy)
+    by_path["train"] = train_phase(port, args.seed, toy, args.device_data_cache)
+    torch.cuda.empty_cache()
+    by_path["supervised"] = sup_train_phase(port, args.seed, toy, args.device_data_cache)
     launches = sum(by_path.values(), Counter())
     for name in KERNEL_NAMES:
         require(launches[name] > 0, f"{name} was launched no time on its path")

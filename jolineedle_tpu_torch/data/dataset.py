@@ -1,8 +1,9 @@
 """Dataset: .txt-list loader with bbox parsing, resize/pad, geometric augs.
 
 A copy of ``jolineedle_tpu/data/dataset.py`` (numpy and PIL only), without
-the device-pool geometry path (``get_geometry``) and the collates, which the
-port does not use yet. The JAX module is the reference data layer (reference:
+the collates, which the port does not use. ``get_geometry`` is the pixel-free
+``__getitem__`` of the device pool's route (``data/device_pool.py``). The JAX
+module is the reference data layer (reference:
 src/dataset.py:18-550). File format parity: a dataset directory contains
 ``train.txt``/``test.txt`` (or ``paths.txt``/``all.txt``), each line
 ``image_path bbox_path``; a bbox file line is
@@ -19,7 +20,7 @@ import os
 import threading
 from collections import OrderedDict
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 from PIL import Image
@@ -281,6 +282,74 @@ class NeedleDataset:
         boxes = boxes[[i for i, c in enumerate(classes) if c == class_id]]
         image, boxes = self.transform(image, boxes, rng)
         return {"image": image, "bboxes": boxes, "class_id": class_id}
+
+    def raw_size(self, index: int) -> Tuple[int, int]:
+        """(w, h) of the encoded image — header read only, no pixel decode."""
+        if not hasattr(self, "_raw_sizes"):
+            self._raw_sizes: Dict[int, Tuple[int, int]] = {}
+        size = self._raw_sizes.get(index)
+        if size is None:
+            with Image.open(self.image_paths[index]) as im:
+                size = im.size
+            self._raw_sizes[index] = size
+        return size
+
+    def get_geometry(
+        self, index: int, rng: Optional[np.random.Generator] = None
+    ) -> dict:
+        """Pixel-free ``__getitem__``: boxes, class, post-aug shape, and the
+        sampled augmentation parameters — consuming the SAME rng draws in
+        the same order as ``__getitem__``, so a caller that swaps one for
+        the other reproduces identical episodes. This is the device-pool
+        route (``data/device_pool.py``): the pixels stay on the device and
+        the train step re-applies ``aug_rot``/``aug_shift`` there.
+
+        Returns keys: ``bboxes`` (post-aug), ``class_id``, ``shape``
+        (post-aug padded H, W), ``base_hw`` (pre-aug padded H, W),
+        ``aug_rot`` (quarter-turns), ``aug_shift`` ((ty, tx) pixels).
+        """
+        if rng is None:
+            rng = self.rng
+        classes, boxes = self.get_all_bboxes(index)
+        class_id = int(rng.choice(classes)) if classes else 0
+        boxes = boxes[[i for i, c in enumerate(classes) if c == class_id]]
+
+        # Mirror transform()'s resize+pad box math without touching pixels.
+        w, h = self.raw_size(index)
+        if self.minimum_image_size and (
+            w < self.minimum_image_size or h < self.minimum_image_size
+        ):
+            ratio = w / h
+            ow, oh = w, h
+            if w < self.minimum_image_size:
+                w = self.minimum_image_size
+                h = int(w / ratio)
+            if h < self.minimum_image_size:
+                h = self.minimum_image_size
+                w = int(h * ratio)
+            boxes = boxes * np.array([w / ow, h / oh, w / ow, h / oh])
+        h_pad = -(-h // self.patch_size) * self.patch_size
+        w_pad = -(-w // self.patch_size) * self.patch_size
+
+        k = 0
+        ty = tx = 0
+        h2, w2 = h_pad, w_pad
+        if self.rotations and len(boxes):
+            k = self.sample_rotation(rng)
+            boxes = self.rotate_boxes(boxes, k, h_pad, w_pad)
+            if k % 2 == 1:
+                h2, w2 = w_pad, h_pad
+        if self.translations and len(boxes):
+            tx, ty = self.sample_translation(boxes, h2, w2, rng)
+            boxes = self.translate_boxes(boxes, tx, ty)
+        return {
+            "bboxes": boxes,
+            "class_id": class_id,
+            "shape": (h2, w2),
+            "base_hw": (h_pad, w_pad),
+            "aug_rot": k,
+            "aug_shift": (ty, tx),
+        }
 
 
 

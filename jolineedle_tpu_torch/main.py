@@ -13,10 +13,15 @@ Both training modes are ported: ``supervised`` (the default,
 the JAX package's ``.msgpack`` files; ``--no-recurrent-embedding`` rolls
 out with the full-prefix forward (``train/rollout.py``).
 
+``--device-data-cache`` means what it means there (``data/device_pool.py``):
+``auto`` (the default) keeps the training set on the device when its padded
+pixels fit the budget, else streams each batch's pixels; ``on`` always keeps
+it there, ``off`` always streams. Each trainer prints the route it took and
+keeps the pool as ``trainer.pool`` (None when streaming).
+
 Not ported yet, and refused with "not yet ported": ``--measure-flops``,
-``--device-data-cache on`` (``auto`` streams the images of each batch, which
-gives the same pixels), ``--steps-per-dispatch`` above 1 (a TPU dispatch
-workaround) and more than one device in ``--devices``.
+``--steps-per-dispatch`` above 1 (a TPU dispatch workaround) and more than
+one device in ``--devices``.
 """
 
 from __future__ import annotations
@@ -57,7 +62,6 @@ def build_both_datasets(train_config, model_config, dataset_dir):
 def _refuse_unported(train_config) -> None:
     refused = {
         "--measure-flops": bool(train_config.measure_flops),
-        "--device-data-cache on": getattr(train_config, "device_data_cache", "auto") == "on",
         "--steps-per-dispatch > 1": int(getattr(train_config, "steps_per_dispatch", 1)) > 1,
         "more than one device in --devices": len(train_config.gpu_ids) > 1,
     }

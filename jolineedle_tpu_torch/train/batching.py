@@ -7,10 +7,10 @@ are gathered by vectorized slicing, and everything is padded to static caps
 host work (PIL decode, numpy slicing) with the device's work on the previous
 batches.
 
-Only the streamed-pixel route is ported: a batch carries its patches as
-uint8. ``with_pixels=False`` (the device pool's geometry-only batches) needs
-``NeedleDataset.get_geometry`` and the device pool, which are not ported, and
-raises.
+A batch either carries its patches as uint8 (the streamed-pixel route), or,
+with ``with_pixels=False`` (the device pool's route, ``data/device_pool.py``),
+only the image indices, geometry and labels, from ``get_geometry``: the
+train step gathers the pixels on the device.
 """
 
 from __future__ import annotations
@@ -47,14 +47,18 @@ def build_supervised_sample(
     max_boxes: int,
     rng: np.random.Generator,
     position=None,
+    with_pixels: bool = True,
 ) -> Dict[str, np.ndarray]:
     """One image -> a fixed-shape oracle episode and its detector patches
-    (``batching.py:32-105``, ``with_pixels=True``): positions, actions,
-    labels, masks and local boxes of the episode, its uint8 patches, and
-    the detector's patch positions, validity, targets and uint8 patches."""
-    image = item["image"]  # [H, W, C] uint8 (float in [0, 1] accepted)
+    (``batching.py:32-105``): positions, actions, labels, masks and local
+    boxes of the episode, and the detector's patch positions, validity and
+    targets; with ``with_pixels``, also both uint8 patch sets. Without it,
+    ``item`` may be a pixel-free ``get_geometry`` dict (``shape`` in place
+    of ``image``)."""
+    image = item.get("image")  # [H, W, C] uint8 (float in [0, 1] accepted)
+    shape = item["shape"] if image is None else image.shape[:2]
     boxes = np.asarray(item["bboxes"], np.float64).reshape(-1, 4)
-    env = OracleEnv(image.shape[:2], patch_size, boxes, rng)
+    env = OracleEnv(shape, patch_size, boxes, rng)
 
     sample = generate_sample(
         env,
@@ -77,9 +81,10 @@ def build_supervised_sample(
     sample["bboxes_yolox"] = det_boxes
     sample["yolox_valid"] = det_valid
 
-    sample["patches"] = _to_u8(gather_patches(image, sample["positions"], patch_size))
-    det_patches = gather_patches(image, det_pos, patch_size)
-    sample["patches_yolox"] = _to_u8(det_patches * det_valid[:, None, None, None])
+    if with_pixels:
+        sample["patches"] = _to_u8(gather_patches(image, sample["positions"], patch_size))
+        det_patches = gather_patches(image, det_pos, patch_size)
+        sample["patches_yolox"] = _to_u8(det_patches * det_valid[:, None, None, None])
     return sample
 
 
@@ -92,16 +97,21 @@ def build_supervised_batch(
 ) -> Dict[str, np.ndarray]:
     """The stacked samples of ``indices`` and their reference actions
     (``batching.py:108-160``). One ``rng`` per batch draws the dataset's
-    class choice and augmentations and the oracle's episodes, in order."""
-    if not with_pixels:
-        raise NotImplementedError(
-            "geometry-only supervised batches (the device data pool) are not yet"
-            " ported to jolineedle_tpu_torch"
-        )
+    class choice and augmentations and the oracle's episodes, in order.
+
+    ``with_pixels=False`` is the device pool's batch: no patches, the items
+    from ``get_geometry`` (the same draws as ``__getitem__``, no decode), and,
+    when the dataset augments, each sample's ``base_hw`` and its ``aug_rot``
+    and ``aug_shift`` for the device to replay. ``image_idx`` is always
+    there."""
     samples = []
+    has_augs = dataset.rotations or dataset.translations
     for idx in indices:
-        item = dataset.__getitem__(int(idx), rng)
-        samples.append(build_supervised_sample(
+        if with_pixels:
+            item = dataset.__getitem__(int(idx), rng)
+        else:
+            item = dataset.get_geometry(int(idx), rng)
+        sample = build_supervised_sample(
             item,
             patch_size=config.patch_size,
             max_seq_len=config.max_seq_len,
@@ -111,7 +121,15 @@ def build_supervised_batch(
             max_det_patches=config.max_det_patches,
             max_boxes=config.max_boxes,
             rng=rng,
-        ))
+            with_pixels=with_pixels,
+        )
+        if not with_pixels and has_augs:
+            sample["base_hw"] = np.asarray(item["base_hw"], np.int32)
+            if dataset.rotations:
+                sample["aug_rot"] = np.int32(item["aug_rot"])
+            if dataset.translations:
+                sample["aug_shift"] = np.asarray(item["aug_shift"], np.int32)
+        samples.append(sample)
     batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
     batch["image_idx"] = np.asarray(indices, np.int32)
 

@@ -13,7 +13,10 @@ mode: no dropout and running-statistics BatchNorm, as ``decode_step`` runs
 is the flash kernel on the card; its convs are PyTorch convs that autograd
 differentiates.
 
-A train step (``reinforce.py:126-233``): rollout; the action loss
+A train step (``reinforce.py:126-233``): the batch's images, uploaded from
+the host or, under ``--device-data-cache`` (``data/device_pool.py``), taken
+from the training set on the device with its augmentations replayed there;
+rollout; the action loss
 ``-logprob * advantage`` and the entropy term over the live steps, with the
 advantages normalised by the previous accumulation window's return
 mean and Bessel-corrected std; then, with detection on, the SimOTA loss of
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data.device_pool import aug_canvases, gather_pool_images
 from ..env.batched_env import NeedleEnv
 from ..env.oracle import gather_patches
 from ..ops.augment import detection_augment
@@ -169,24 +173,61 @@ class ReinforceTrainer(Trainer):
             self._fixed_shape = fixed_training_shape(self.train_dataset, self.config.patch_size)
         return self._fixed_shape
 
-    def _build_env_batch(self, indices, seed: int = 0) -> Dict[str, np.ndarray]:
-        """uint8 ``[B, Hf, Wf, C]`` images padded to the static training
-        shape and ``[B, max_boxes, 4]`` padded boxes (``reinforce.py:296-350``,
-        the streaming path)."""
+    def _build_env_batch(self, indices, seed: int = 0,
+                         with_pixels: bool = True) -> Dict[str, np.ndarray]:
+        """``[B, max_boxes, 4]`` padded boxes and either the uint8 ``[B, Hf,
+        Wf, C]`` images padded to the static training shape or, with
+        ``with_pixels=False`` (the device pool's route), the images' indices
+        and the augmentations to replay (``reinforce.py:296-350``)."""
         cfg = self.config
         hf, wf = self.fixed_shape
+        ds = self.train_dataset
         rng = np.random.default_rng(seed)
         images, boxes = [], []
+        aug_rot, aug_shift, base_hw = [], [], []
         for idx in indices:
-            item = self.train_dataset.__getitem__(int(idx), rng)
-            img = item["image"]
-            if img.dtype != np.uint8:
-                img = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
-            h, w = img.shape[:2]
-            images.append(np.pad(img, ((0, hf - h), (0, wf - w), (0, 0))))
+            if with_pixels:
+                item = ds.__getitem__(int(idx), rng)
+                img = item["image"]
+                if img.dtype != np.uint8:
+                    img = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
+                h, w = img.shape[:2]
+                images.append(np.pad(img, ((0, hf - h), (0, wf - w), (0, 0))))
+            else:
+                item = ds.get_geometry(int(idx), rng)  # the same draws, no decode
+                aug_rot.append(item["aug_rot"])
+                aug_shift.append(item["aug_shift"])
+                base_hw.append(item["base_hw"])
             b = np.asarray(item["bboxes"], np.float32).reshape(-1, 4)[: cfg.max_boxes]
             boxes.append(np.pad(b, ((0, cfg.max_boxes - len(b)), (0, 0))))
-        return {"image": np.stack(images), "bboxes": np.stack(boxes)}
+        batch = {"bboxes": np.stack(boxes)}
+        if with_pixels:
+            batch["image"] = np.stack(images)
+        else:
+            batch["image_idx"] = np.asarray(indices, np.int32)
+            if ds.rotations or ds.translations:
+                batch["base_hw"] = np.asarray(base_hw, np.int32)
+            if ds.rotations:
+                batch["aug_rot"] = np.asarray(aug_rot, np.int32)
+            if ds.translations:
+                batch["aug_shift"] = np.asarray(aug_shift, np.int32)
+        return batch
+
+    def _batch_images(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
+        """The ``[B, Hf, Wf, C]`` uint8 images of a batch on the device
+        (``reinforce.py:126-152``): uploaded, or from ``self.pool``, by
+        index when the pool already has the training shape and nothing is
+        to be replayed, else through ``aug_canvases`` at that shape."""
+        if "image" in batch:
+            return torch.from_numpy(batch["image"]).to(self.device)
+        dev = {k: torch.from_numpy(batch[k]).to(self.device)
+               for k in ("image_idx", "aug_rot", "aug_shift", "base_hw") if k in batch}
+        pool = self.pool.images
+        if ("aug_rot" in dev or "aug_shift" in dev
+                or tuple(pool.shape[1:3]) != tuple(self.fixed_shape)):
+            return aug_canvases(pool, dev["image_idx"], dev.get("aug_rot"), dev.get("aug_shift"),
+                                dev.get("base_hw"), out_hw=tuple(self.fixed_shape))
+        return gather_pool_images(pool, dev["image_idx"])
 
     # --- the train step ---------------------------------------------------------
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -194,7 +235,8 @@ class ReinforceTrainer(Trainer):
         device scalars (no host synchronisation)."""
         cfg = self.config
         self._mark("start")
-        images = torch.from_numpy(batch["image"]).to(self.device)
+        images = self._batch_images(batch)
+        self._mark("upload")
         env = NeedleEnv(images, batch["bboxes"], cfg.patch_size, self.max_ep_len, 1,
                         self.stop_enabled, stop_bonus_scale=getattr(cfg, "stop_bonus_scale", 1.0),
                         device=self.device)
@@ -245,8 +287,18 @@ class ReinforceTrainer(Trainer):
             batch_counter[0] += 1
             return indices, cfg.seed + 1 + batch_counter[0]
 
-        prefetcher = Prefetcher(lambda work: self._build_env_batch(*work), n_prefetch=2,
-                                num_workers=cfg.num_workers, pick_work=pick_work)
+        self.pool = self.build_pool()
+        if self.pool is not None:
+            # A pool padded beyond the training shape cannot fill the env's
+            # images (``reinforce.py:380-397``).
+            hp, wp = self.pool.images.shape[1:3]
+            hf, wf = self.fixed_shape
+            if hp > hf or wp > wf:
+                print("device pool: pad shape exceeds fixed training shape, streaming instead")
+                self.pool = None
+        with_pixels = self.pool is None
+        prefetcher = Prefetcher(lambda work: self._build_env_batch(*work, with_pixels=with_pixels),
+                                n_prefetch=2, num_workers=cfg.num_workers, pick_work=pick_work)
         try:
             for it in range(1, cfg.max_iters + 1):
                 self.maybe_profile(it)

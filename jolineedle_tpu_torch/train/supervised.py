@@ -1,10 +1,14 @@
 """Supervised (imitation-learning) trainer: ``--training-mode supervised``.
 
-The counterpart of ``jolineedle_tpu/train/supervised.py``, on the streamed-
-pixel route (each batch's patches come up from the host as uint8):
+The counterpart of ``jolineedle_tpu/train/supervised.py``:
 
 - the trajectory labels come from the numpy oracle in the input pipeline
-  (``train/batching.py``), built on the ``Prefetcher``'s threads;
+  (``train/batching.py``), built on the ``Prefetcher``'s threads. Under
+  ``--device-data-cache`` (``data/device_pool.py``) the training set lives
+  on the device, the batches carry only indices, geometry and labels, and
+  the train step gathers the patches there (and replays the geometric
+  augmentations); otherwise each batch's patches come up from the host as
+  uint8;
 - a train step (``supervised.py:103-220``): the photometric augmentation of
   the decision patches, the teacher-forced forward in train mode (dropout
   from the trainer's generator, batch-statistics BatchNorm in the embedder;
@@ -29,11 +33,10 @@ differ (the losses on the same augmented patches do not, see
 :func:`decision_loss` and :func:`detection_loss`).
 
 Not ported: ``_build_multi_train_step`` (``--steps-per-dispatch > 1``, a
-TPU dispatch workaround, which ``main.py`` refuses), the device-pool route,
-and the plot panels of ``eval_envs`` (the model's and the oracle's
-trajectory images) and the worst-images pass of ``test``
-(``--failure-select-rate``): they only feed plots and wait for the plotting
-port, so the logger receives no images.
+TPU dispatch workaround, which ``main.py`` refuses), and the plot panels of
+``eval_envs`` (the model's and the oracle's trajectory images) and the
+worst-images pass of ``test`` (``--failure-select-rate``): they only feed
+plots and wait for the plotting port, so the logger receives no images.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data.device_pool import aug_canvases, gather_canvas_patches, gather_pool_patches
 from ..env.actions import Action
 from ..env.batched_env import NeedleEnv
 from ..env.oracle import OracleEnv, gather_patches, move_towards
@@ -57,9 +61,20 @@ from .batching import Prefetcher, build_supervised_batch
 from .rollout import rollout
 from .trainer import Trainer
 
-#: The batch entries a train step uploads to the device.
-TRAIN_KEYS = ("patches", "current_actions", "class_id", "positions", "reference_actions",
-              "masks", "patches_yolox", "bboxes_yolox", "yolox_valid")
+#: The batch entries every train step uploads to the device: the labels.
+LABEL_KEYS = ("current_actions", "class_id", "positions", "reference_actions", "masks",
+              "bboxes_yolox", "yolox_valid")
+#: What a streamed batch adds: the uint8 pixels of both patch sets.
+PIXEL_KEYS = ("patches", "patches_yolox")
+#: What a device pool's batch adds: the images and patches to gather, and the
+#: augmentations to replay (those of them the batch has).
+POOL_KEYS = ("image_idx", "yolox_positions", "base_hw", "aug_rot", "aug_shift")
+
+
+def upload_keys(batch: Dict[str, np.ndarray]) -> Tuple[str, ...]:
+    """The entries of ``batch`` that a train step uploads."""
+    extra = PIXEL_KEYS if "patches" in batch else POOL_KEYS
+    return LABEL_KEYS + tuple(k for k in extra if k in batch)
 
 
 def action_ce_metrics(logits, targets, masks, class_weight):
@@ -136,24 +151,48 @@ class SupervisedTrainer(Trainer):
         self.class_weight = torch.from_numpy(weight).to(self.device)
 
     # --- the train step ---------------------------------------------------------
+    def _pool_patches(self, dev, positions, canvases):
+        """uint8 patches at ``positions`` from the device pool: from the
+        batch's augmented ``canvases`` when it has them, else from the pool
+        (``supervised.py:109-135``)."""
+        if canvases is not None:
+            return gather_canvas_patches(canvases, positions, self.config.patch_size)
+        return gather_pool_patches(self.pool.images, dev["image_idx"], positions,
+                                   self.config.patch_size)
+
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """One iteration on a host batch of ``build_supervised_batch``;
         returns its metrics as device scalars (no host synchronisation).
+        A batch without ``patches`` takes its pixels from ``self.pool``.
         Each loss term is differentiated as soon as it is computed: the same
         summed gradient, with the decoder's activations freed before the
         detector runs."""
         cfg = self.config
         self._mark("start")
-        dev = {k: torch.from_numpy(batch[k]).to(self.device) for k in TRAIN_KEYS}
+        dev = {k: torch.from_numpy(batch[k]).to(self.device) for k in upload_keys(batch)}
         self._mark("upload")
-        patches = detection_augment(self.generator, dev["patches"])
+        canvases = None
+        if "patches" in dev:
+            raw = dev["patches"]
+        else:
+            if "aug_rot" in dev or "aug_shift" in dev:
+                canvases = aug_canvases(self.pool.images, dev["image_idx"], dev.get("aug_rot"),
+                                        dev.get("aug_shift"), dev.get("base_hw"))
+            raw = self._pool_patches(dev, dev["positions"], canvases)
+        patches = detection_augment(self.generator, raw)
         loss, metrics = decision_loss(self.model, patches, dev, self.class_weight,
                                       self.generator)
         loss.backward()
         loss = loss.detach()
         self._mark("decision")
         if cfg.detection_enabled:
-            det = detection_augment(self.generator, dev["patches_yolox"])
+            if "patches_yolox" in dev:
+                raw = dev["patches_yolox"]
+            else:
+                # The streamed batch's padding patches are zeros; so are these.
+                raw = self._pool_patches(dev, dev["yolox_positions"], canvases)
+                raw = raw * dev["yolox_valid"][:, :, None, None, None].to(raw.dtype)
+            det = detection_augment(self.generator, raw)
             ylo = detection_loss(self.model, det, dev)
             ylo["total_loss"].backward()
             loss = loss + ylo["total_loss"].detach()
@@ -190,9 +229,12 @@ class SupervisedTrainer(Trainer):
             batch_counter[0] += 1
             return indices, cfg.seed + 1 + batch_counter[0]
 
+        self.pool = self.build_pool()
+
         def make_batch(work):
             indices, seed = work
-            return build_supervised_batch(dataset, indices, cfg, np.random.default_rng(seed))
+            return build_supervised_batch(dataset, indices, cfg, np.random.default_rng(seed),
+                                          with_pixels=self.pool is None)
 
         prefetcher = Prefetcher(make_batch, n_prefetch=2, num_workers=cfg.num_workers,
                                 pick_work=pick_work)

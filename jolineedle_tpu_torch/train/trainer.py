@@ -29,6 +29,7 @@ import torch
 
 from .. import checkpoint as ckpt
 from .. import resolve_device
+from ..data.device_pool import DeviceImagePool
 from ..env.actions import get_actions_info
 from ..ops.simota import yolox_losses
 from .optim import Optimizer
@@ -98,6 +99,9 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         #: Set to a list to record (phase, CUDA event) marks in train_step.
         self.phase_events = None
+        #: The training set on the device (``data/device_pool.py``), or None
+        #: while the train batches stream their pixels; ``run`` decides.
+        self.pool = None
 
     # --- train state --------------------------------------------------------
     def train_state(self) -> dict:
@@ -109,6 +113,16 @@ class Trainer:
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
         self.generator.set_state(state["generator"])
+
+    def build_pool(self):
+        """The training set's device pool under ``--device-data-cache``, or
+        None to stream; either way the route is printed."""
+        mode = getattr(self.config, "device_data_cache", "auto")
+        if DeviceImagePool.eligible(self.train_dataset, mode):
+            return DeviceImagePool.build(self.train_dataset, self.device)
+        if mode == "off":
+            print("device pool: off (--device-data-cache off), streaming instead")
+        return None
 
     def _mark(self, phase: str) -> None:
         """Record a CUDA event after ``phase`` when ``phase_events`` is a list."""

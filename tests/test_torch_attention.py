@@ -17,6 +17,10 @@ import torch
 from jolineedle_tpu_torch.ops import attention as tattn
 from jolineedle_tpu_torch.ops.kernels import CSRC, SIGNATURES
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 
 def _qkv(shape, seed, dtype=np.float32):
     rng = np.random.default_rng(seed)

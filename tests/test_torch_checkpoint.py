@@ -40,6 +40,10 @@ from jolineedle_tpu_torch.models.bridge import torch_to_flax
 from jolineedle_tpu_torch.models.gpt import GPT
 from jolineedle_tpu_torch.train.reinforce import ReinforceTrainer
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 P = 64
 
 

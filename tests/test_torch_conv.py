@@ -21,6 +21,10 @@ import torch
 
 from jolineedle_tpu_torch.ops import conv as tconv
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 # (B, H, W, C, K): the shapes of tests/test_pallas_conv.py:18,40, a
 # nano-like one (28x28, 16 -> 16), the widest nano shape (14x14, 128) and a
 # ragged one with K != C (13x9, 64 -> 32).

@@ -13,6 +13,10 @@ import jax.numpy as jnp
 from jolineedle_tpu.env.batched_env import NeedleEnv as JaxEnv
 from jolineedle_tpu_torch.env.batched_env import NeedleEnv as TorchEnv
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 P, NV, NH, B, T = 32, 2, 3, 3, 6
 STOP = 8
 

@@ -34,6 +34,10 @@ from jolineedle_tpu_torch.models.gpt import GPT as TorchGPT
 from jolineedle_tpu_torch.train.rollout import eval_rollout, to_numpy
 from tests.test_torch_serve import B, LOGIT_TOL, NH, NV, P, T, _cli, _np_tree, _randomize
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def full_prefix(tmp_path_factory):

@@ -21,6 +21,10 @@ from jolineedle_tpu_torch.env.actions import get_actions_info as t_actions_info
 from jolineedle_tpu_torch.models.bridge import flax_to_torch
 from jolineedle_tpu_torch.models.gpt import GPT as TorchGPT
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 P, T, B = 64, 4, 2
 
 CLI = [

@@ -31,6 +31,10 @@ from jolineedle_tpu_torch.env.actions import get_actions_info as t_actions_info
 from jolineedle_tpu_torch.models.bridge import gpt_key_map
 from jolineedle_tpu_torch.models.gpt import GPT as TorchGPT
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 P = 64
 CLI = [
     "--training-mode", "supervised", "--dataset-dir", "/nonexistent",
@@ -149,8 +153,10 @@ def test_no_recurrent_embedding_trains_and_serves(tmp_path, monkeypatch):
     monkeypatch.setattr(TorchGPT, "decode_step", no_cache)
     generate_toy_dataset(tmp_path / "data", n_train=4, n_test=2, image_size=(2 * P, 3 * P),
                          seed=0, box_size=(12, 40))
-    trainer = main(tconfig.get_args(_full_prefix_flags(tmp_path)), device="cpu")
+    trainer = main(tconfig.get_args(_full_prefix_flags(tmp_path)
+                                    + ["--device-data-cache", "off"]), device="cpu")
     assert trainer.model.no_recurrent_embedding and trainer.step == 1
+    assert trainer.pool is None  # the pixels streamed
     model_dir = tmp_path / "out" / "norec"
     assert json.loads((model_dir / "config.json").read_text())["model"][
         "no_recurrent_embedding"]
@@ -183,8 +189,9 @@ def test_no_recurrent_embedding_trains_reinforce(tmp_path, monkeypatch):
     flags[flags.index("--training-mode") + 1] = "reinforce"
     flags[flags.index("--max-iters") + 1] = "1"
     torch.manual_seed(0)
-    trainer = main(tconfig.get_args(flags + ["--seed", "0"]), device="cpu")
-    assert trainer.model.no_recurrent_embedding
+    trainer = main(tconfig.get_args(flags + ["--seed", "0", "--device-data-cache", "on"]),
+                   device="cpu")
+    assert trainer.model.no_recurrent_embedding and trainer.pool is not None
     assert trainer.step == 1 and trainer.optimizer.updates == 1
     metrics = trainer.last_train_metrics
     assert "action_loss" in metrics

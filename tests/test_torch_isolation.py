@@ -31,6 +31,10 @@ from jolineedle_tpu_torch.models.yolox import NeedleYOLOX
 from jolineedle_tpu_torch.train.reinforce import ReinforceTrainer
 from jolineedle_tpu_torch.train.rollout import eval_rollout
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 P = 64
@@ -56,7 +60,7 @@ def test_every_module_imports_without_jax():
     import, and none of them (nor a submodule) is loaded after."""
     for name in ("ops.conv", "ops.attention", "main", "scripts.smoke_conv",
                  "train.reinforce", "checkpoint", "models.port",
-                 "scripts.port_yolox_weights"):
+                 "scripts.port_yolox_weights", "data.device_pool"):
         assert f"jolineedle_tpu_torch.{name}" in PORT_MODULES
     code = (
         "import importlib, importlib.util, sys\n"

@@ -47,6 +47,10 @@ from jolineedle_tpu_torch.train.reinforce import ReinforceTrainer
 from jolineedle_tpu_torch.train.rollout import eval_rollout, to_numpy
 from tests.test_torch_checkpoint import _same
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 P, T, NV, NH, B = 64, 4, 2, 3, 2
 LOGIT_TOL = 1e-4  # tests/test_torch_serve.py
 

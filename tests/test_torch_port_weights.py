@@ -40,6 +40,10 @@ from jolineedle_tpu_torch.models.gpt import GPT
 from jolineedle_tpu_torch.models.yolox import NeedleYOLOX
 from jolineedle_tpu_torch.scripts import port_yolox_weights as tscript
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 VARIANT, P, COCO = "yolox-nano", 64, 80
 CLS_PREDS = [f"head.cls_preds.{i}.{leaf}" for i in range(3) for leaf in ("weight", "bias")]

@@ -32,6 +32,10 @@ from jolineedle_tpu_torch.ops.nms import postprocess
 from jolineedle_tpu_torch.train.rollout import compute_rollout_metrics, eval_rollout, to_numpy
 from jolineedle_tpu_torch.utils.metrics import patch_bboxes2full_image
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 P, NV, NH, T, B = 64, 2, 3, 4, 2
 LOGIT_TOL = 1e-4
 

@@ -36,6 +36,10 @@ from jolineedle_tpu_torch.env import oracle as toracle
 from jolineedle_tpu_torch.train import batching as tbatching
 from jolineedle_tpu_torch.train import supervised as tsup
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 P, T = 64, 5
 CLI = [
     "--training-mode", "supervised", "--dataset-dir", "/nonexistent",
@@ -101,7 +105,8 @@ def _assert_same_arrays(got: dict, want: dict):
 def test_supervised_batch_equals_jax(toy, loss_mode, keypoints):
     """``build_supervised_batch`` on the same dataset files, indices and
     seed: every array equal, the rotate/translate augmentations drawn from
-    the same generator; STOP is on and never a label."""
+    the same generator, with and without the pixels; STOP is on and never
+    a label."""
     extra = ["--loss", loss_mode, "--augment-rotate", "--augment-translate"] + keypoints
     (j_train_ds, _), (t_train_ds, _), j_cfg, t_cfg = _datasets(toy, extra)
     assert t_cfg.stop_enabled and t_cfg.loss_mode == loss_mode
@@ -115,9 +120,14 @@ def test_supervised_batch_equals_jax(toy, loss_mode, keypoints):
     assert (got["next_actions"] != 8).all() and got["yolox_valid"].any()
     if loss_mode == "on-self-trajectory":
         assert not np.array_equal(got["reference_actions"], got["next_actions"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbatching.build_supervised_batch(t_train_ds, indices, t_cfg, np.random.default_rng(7),
-                                         with_pixels=False)
+    # the device pool's batch: no pixels, the same episodes, the augmentations
+    want = jbatching.build_supervised_batch(j_train_ds, indices, j_cfg,
+                                            np.random.default_rng(7), with_pixels=False)
+    no_px = tbatching.build_supervised_batch(t_train_ds, indices, t_cfg,
+                                             np.random.default_rng(7), with_pixels=False)
+    _assert_same_arrays(no_px, want)
+    assert {"aug_rot", "aug_shift", "base_hw", "image_idx"} <= set(no_px)
+    assert set(got) - set(no_px) == {"patches", "patches_yolox"}
 
 
 def _world(seed, hw=(4 * P, 5 * P)):
@@ -263,7 +273,8 @@ def test_train_cli_supervised_trains_tests_and_resumes_on_cpu(toy):
     (one update), the final test; the checkpoint files with ``map`` as the
     best metric; both optimizer groups, the embedder's and the detector's
     BN statistics moved; then a resumed run takes one more iteration from
-    the saved optimizer state and generator."""
+    the saved optimizer state and generator. Both runs train from the device
+    pool (``auto``, then ``on``)."""
     from jolineedle_tpu_torch.checkpoint import load_train_state
     from jolineedle_tpu_torch.env.actions import get_actions_info
     from jolineedle_tpu_torch.main import main
@@ -278,6 +289,7 @@ def test_train_cli_supervised_trains_tests_and_resumes_on_cpu(toy):
     run_dir = toy / "out" / "cli"
     assert isinstance(trainer, tsup.SupervisedTrainer)
     assert trainer.step == 2 and trainer.optimizer.updates == 1
+    assert trainer.pool is not None  # --device-data-cache auto: the toy set fits
     assert {"config.json", "checkpoint.pt", "checkpoint_best.pt", "train_state.pt",
             "metrics.json", "best_model.txt", "visdom.pkl"} <= {p.name for p in run_dir.iterdir()}
     assert "map:" in (run_dir / "best_model.txt").read_text()
@@ -303,6 +315,7 @@ def test_train_cli_supervised_trains_tests_and_resumes_on_cpu(toy):
     assert torch.equal(state["generator"], trainer.generator.get_state())
 
     resumed = main(tconfig.get_args(flags + ["--resume-training", str(run_dir),
-                                             "--max-iters", "2"]), device="cpu")
-    assert resumed.step == 3
+                                             "--max-iters", "2", "--device-data-cache", "on"]),
+                   device="cpu")
+    assert resumed.step == 3 and resumed.pool is not None
     assert (resumed.optimizer.updates, resumed.optimizer.mini_step) == (1, 1)

@@ -40,6 +40,10 @@ from jolineedle_tpu_torch.models.bridge import flax_to_torch, torch_to_flax
 from jolineedle_tpu_torch.models.gpt import GPT as TorchGPT
 from jolineedle_tpu_torch.train.supervised import decision_loss, detection_loss
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 P, NV, NH, T, B, K = 64, 2, 3, 4, 2, 4
 GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
 STOP_WEIGHT = 2.0

@@ -41,6 +41,10 @@ from jolineedle_tpu_torch.train.optim import Optimizer
 from jolineedle_tpu_torch.train.reinforce import reinforce_loss
 from jolineedle_tpu_torch.train.rollout import rollout
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 P, NV, NH, T, B = 64, 2, 3, 4, 2
 GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
 
@@ -480,9 +484,9 @@ def test_prefetcher_raises_a_worker_error(num_workers):
 
 def test_train_cli_trains_checkpoints_and_resumes_on_cpu(tmp_path):
     """``main`` end to end on a toy dataset on the CPU: 2 iterations with
-    gradient accumulation 2 (one update), the final test, the checkpoint
-    files; then a resumed run that restores the train state and takes one
-    more iteration. The update moved both optimizer groups and the
+    gradient accumulation 2 (one update) from the device pool, the final
+    test, the checkpoint files; then a resumed run, streaming the pixels,
+    that restores the train state and takes one more iteration. The update moved both optimizer groups and the
     detector's BN statistics, and left the embedder's statistics alone."""
     from jolineedle_tpu_torch.checkpoint import load_train_state
     from jolineedle_tpu_torch.data.toy import generate_toy_dataset
@@ -499,6 +503,7 @@ def test_train_cli_trains_checkpoints_and_resumes_on_cpu(tmp_path):
     trainer = main(cli(flags), device="cpu")
     run_dir = tmp_path / "out" / "cli"
     assert trainer.step == 2 and trainer.optimizer.updates == 1
+    assert trainer.pool is not None  # --device-data-cache auto: the toy set fits
     assert {"config.json", "checkpoint.pt", "checkpoint_best.pt", "train_state.pt",
             "metrics.json", "best_model.txt", "visdom.pkl"} <= {p.name for p in run_dir.iterdir()}
     metrics = trainer.last_train_metrics
@@ -519,7 +524,7 @@ def test_train_cli_trains_checkpoints_and_resumes_on_cpu(tmp_path):
     state = load_train_state(run_dir)
     assert state["step"] == 2 and state["optimizer"]["updates"] == 1
 
-    resumed = main(cli(flags + ["--resume-training", str(run_dir), "--max-iters", "1"]),
-                   device="cpu")
-    assert resumed.step == 3
+    resumed = main(cli(flags + ["--resume-training", str(run_dir), "--max-iters", "1",
+                                "--device-data-cache", "off"]), device="cpu")
+    assert resumed.step == 3 and resumed.pool is None
     assert (resumed.optimizer.updates, resumed.optimizer.mini_step) == (1, 1)

@@ -24,6 +24,10 @@ from jolineedle_tpu_torch.models.gpt import GPT as TorchGPT
 from jolineedle_tpu_torch.models.yolox import NeedleYOLOX
 from jolineedle_tpu_torch.ops import conv as tconv
 
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
 P = 64
 TOL = dict(atol=2e-4, rtol=1e-3)  # as tests/test_port_golden.py
 
