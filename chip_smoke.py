@@ -103,7 +103,26 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    and of the teacher-forced eval's embedder and detector, and its 3 flash
    launches per batch of 16 images. Then two more steps on each route give
    the phase times (upload, decision, detection, optimizer), the bytes each
-   uploads, the peak memory and a ``torch.profiler`` busy share.
+   uploads, the peak memory and a ``torch.profiler`` busy share; the
+   resumed run's final test is kept for phase 12;
+12. eval and report: a toy test set of 10 images of 3 x 3 patches (1344
+   px), so that ``--failure-select-rate`` 0.1 picks one worst image.
+   ``--measure-flops`` through the train CLI on the card and on the CPU
+   gives the same report (printed), launches no kernel and takes no card
+   memory beyond the model's weights in its FLOP pass (``meta`` tensors).
+   Each trainer's ``test()`` of the 10 images runs the eval rollouts, the
+   detections, the panels' inputs (6 picks of ``visual_rng``; the
+   supervised oracle samples) and the worst-images pass on the kernels,
+   with exact launch counts, and without matplotlib prints the panel line
+   and hands no image to the logger; a fresh trainer's test gives the same
+   metrics; a third at failure rate 0 gives the worst pass's share of the
+   cycle's wall time. ``python -m jolineedle_tpu_torch.scripts.
+   eval_checkpoint`` on phase 11's run (the port's ``.pt``: the metrics of
+   that run's final test, exactly) and on phase 6's JAX-format run (``.msgpack``, on the
+   phase's test set) prints ``FULL-TEST`` and changes neither directory.
+   ``infer --output-dir`` without matplotlib raises before any launch (with
+   it, writes ``result0.png``). ``nms_mask`` on the card gives the CPU's
+   keep mask at N = 64 and 1000.
 
 Phase 3 also holds the flash-attention kernel against its plain versions
 (output, log-sum-exp and gradients) at the decoder's shape [16, 3, 21, 16]
@@ -184,6 +203,8 @@ EXPECTED_PER_CALL = {
     "detector": {"dwblock_bn_silu": 24, "conv3x3_bn_silu": 1},
 }
 
+# The toy datasets' box sides in pixels.
+BOX_SIZE = (48, 200)
 # The train phase: the flagship config at batch 16, gradient accumulation 2.
 TRAIN_B, TRAIN_ACCUM, TRAIN_ITERS, N_LAYER = 16, 2, 4, 3
 # The supervised train phase: the same, with dropout on and a test of
@@ -1544,7 +1565,7 @@ def toy_dataset(port, seed) -> Path:
     shutil.rmtree(root, ignore_errors=True)
     start = time.perf_counter()
     port.generate_toy_dataset(root / "toy", n_train=8, n_test=2, image_size=(GRID * PATCH,) * 2,
-                              seed=seed, box_size=(48, 200))
+                              seed=seed, box_size=BOX_SIZE)
     say(f"train: toy dataset of 8 + 2 images {GRID * PATCH}x{GRID * PATCH} in"
         f" {time.perf_counter() - start:.1f} s")
     return root / "toy"
@@ -1656,23 +1677,48 @@ def train_phase(port, seed, toy, cache):
     return Counter(main_counts) + Counter(resume_counts)
 
 
-def sup_test_launches(n_ids: int) -> dict:
+def conv_launches(calls: dict) -> dict:
+    """The conv kernels' launches of ``calls`` embedder and detector calls."""
+    return {k: sum(calls[c] * EXPECTED_PER_CALL[c][k] for c in calls)
+            for k in EXPECTED_PER_CALL["embedder"]}
+
+
+def sup_test_launches(n_ids: int, n_worst: int = 0) -> dict:
     """The kernel launches of one supervised ``test()`` on ``n_ids`` test
     images of one shape, from ``train/supervised.py`` and
     ``train/trainer.py``: two starts per image (multistart), so ``2 n_ids``
     rollout rows in chunks of at most EVAL_CHUNK, each chunk STEPS - 1 steps
     of one embedder call; their detections in chunks of EVAL_DET_ROWS
-    episodes, one detector call each; and per TRAIN_B images the
-    teacher-forced eval's one forward (an embedder call and N_LAYER flash
-    launches) and one detector call."""
-    rows = 2 * n_ids
+    episodes, one detector call each; the same for the ``n_worst`` images of
+    the worst-images pass (a second ``eval_envs``); and per TRAIN_B images
+    the teacher-forced eval's one forward (an embedder call and N_LAYER
+    flash launches) and one detector call."""
     sup_batches = math.ceil(n_ids / TRAIN_B)
-    calls = {"embedder": math.ceil(rows / EVAL_CHUNK) * (STEPS - 1) + sup_batches,
-             "detector": math.ceil(rows / EVAL_DET_ROWS) + sup_batches}
-    out = {k: sum(calls[c] * EXPECTED_PER_CALL[c][k] for c in calls)
-           for k in EXPECTED_PER_CALL["embedder"]}
+    calls = Counter({"embedder": sup_batches, "detector": sup_batches})
+    for n in (n_ids, n_worst):
+        if n:
+            calls += Counter({"embedder": math.ceil(2 * n / EVAL_CHUNK) * (STEPS - 1),
+                              "detector": math.ceil(2 * n / EVAL_DET_ROWS)})
+    out = conv_launches(calls)
     out["flash_attention"] = N_LAYER * sup_batches
     return out
+
+
+def rl_test_launches(n_ids: int, n_worst: int = 0) -> dict:
+    """The kernel launches of one REINFORCE ``test()`` on ``n_ids`` test
+    images of one shape, from ``train/reinforce.py`` and
+    ``train/trainer.py``: the eval rollouts in chunks of at most EVAL_CHUNK
+    rows, STEPS embedder calls each; the trajectories' detections (STEPS + 1
+    patches an episode) in chunks of DET_EVAL_PATCHES // (STEPS + 1)
+    episodes and the positive patches' (MAX_DET_PATCHES an image) in chunks
+    of EVAL_CHUNK images, one detector call each; and per worst image its
+    own rollout, trajectory detection and positive-patch detection (every
+    toy image holds a box, so it has a positive patch)."""
+    calls = {"embedder": (math.ceil(n_ids / EVAL_CHUNK) + n_worst) * STEPS,
+             "detector": math.ceil(n_ids / (DET_EVAL_PATCHES // (STEPS + 1)))
+             + math.ceil(n_ids / min(EVAL_CHUNK, DET_EVAL_PATCHES // MAX_DET_PATCHES))
+             + 2 * n_worst}
+    return conv_launches(calls)
 
 
 def sup_train_phase(port, seed, toy, cache):
@@ -1795,7 +1841,264 @@ def sup_train_phase(port, seed, toy, cache):
             and resumed.optimizer.mini_step == 1, "supervised resume: optimizer state")
     say(f"supervised train: resumed from {run_dir.name} at step {TRAIN_ITERS}, took step"
         f" {resumed.step}")
-    return Counter(main_counts) + Counter(resume_counts)
+    # The resumed run's final test (its first): the best checkpoint on the
+    # whole test set, which the eval phase's eval_checkpoint must reproduce.
+    full_test = {k: float(np.mean(v)) for k, v in resumed.last_test_metrics.items()}
+    return Counter(main_counts) + Counter(resume_counts), (run_dir, full_test)
+
+
+# --- phase 12: eval and report --------------------------------------------------------
+# The test set of the phase's test cycles: EVAL_TEST images of EVAL_GRID x
+# EVAL_GRID patches, enough for --failure-select-rate 0.1 (the default) to
+# pick int(0.1 * EVAL_TEST) worst images.
+EVAL_TEST, EVAL_GRID, FAILURE_RATE = 10, 3, 0.1
+NMS_SIZES = (64, 1000)
+
+
+def run_dir_state(run_dir: Path) -> dict:
+    """Every file under ``run_dir`` with its size and mtime."""
+    return {str(p.relative_to(run_dir)): (p.stat().st_size, p.stat().st_mtime_ns)
+            for p in sorted(run_dir.rglob("*"))}
+
+
+def flops_check(port, flags):
+    """``--measure-flops`` through the train CLI on the card and on the CPU:
+    the same report, no kernel launch, and no card memory beyond the
+    model's weights in the FLOP pass itself."""
+    from jolineedle_tpu_torch.utils.flops import measure_flops
+
+    reset_launches(port)
+    trainer = port.train_main(port.tconfig.get_args(flags), device="cuda")
+    check_launches(port, "--measure-flops on the card", {})
+    cpu = port.train_main(port.tconfig.get_args(flags), device="cpu")
+    require(trainer.flops_report == cpu.flops_report,
+            f"--measure-flops: the card's report {trainer.flops_report} differs from the CPU's"
+            f" {cpu.flops_report}")
+    require(not (trainer.checkpoint_dir / "checkpoint.pt").exists(),
+            "--measure-flops trained and wrote a checkpoint")
+    model = trainer.model
+    weights = sum(t.numel() * t.element_size()
+                  for t in list(model.parameters()) + list(model.buffers()))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    train_config, model_config = port.tconfig.args_to_config(port.tconfig.get_args(flags))
+    measure_flops(trainer, model_config, train_config)
+    grown = torch.cuda.max_memory_allocated() - base
+    require(grown < weights, f"--measure-flops: the FLOP pass took {grown} bytes of card memory,"
+            f" the model's weights are {weights}")
+    check_launches(port, "--measure-flops on the card, twice", {})
+    report = trainer.flops_report
+    seq = max(report["seq_len"])  # 16 at the flagship's 20 steps
+    say(f"--measure-flops: the card's report equals the CPU's; complete model at seq len {seq}:"
+        f" {report['seq_len'][seq]:.6g} FLOPs ({report['seq_len'][seq] / 1e9:.3f} GFLOP), backbone"
+        f" on one {PATCH} px patch {report['backbone']:.6g}, YOLOX on one patch"
+        f" {report['yolox']:.6g}, on {8 * PATCH}x{8 * PATCH} {report['yolox_image']:.6g};"
+        f" params {report['params']}; the FLOP pass took {grown} bytes of card memory"
+        f" (the weights: {weights}), no kernel launch")
+
+
+def timed_test(port, trainer):
+    """One ``trainer.test()``: its wall ms (ending in a device sync), its
+    launch counts and the panels it handed to ``log_eval``."""
+    panels = {}
+    log_eval = trainer.log_eval
+
+    def capture(metrics, mode_panels, mode):
+        panels.update(mode_panels)
+        log_eval(metrics, mode_panels, mode)
+
+    trainer.log_eval = capture
+    torch.cuda.synchronize()
+    reset_launches(port)
+    start = time.perf_counter()
+    trainer.test()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - start) * 1e3
+    metrics = {k: float(np.mean(v)) for k, v in trainer.last_test_metrics.items()}
+    return ms, read_launches(port), panels, metrics
+
+
+def panels_check(port, mode, make_trainer, expected_launches):
+    """``test()`` of a fresh trainer three times: twice at
+    ``--failure-select-rate`` FAILURE_RATE (the same metrics, the expected
+    launches, the panels' inputs built and, without matplotlib, the panel
+    line printed and no image handed over), once at 0 (the worst pass's
+    share of the cycle). Returns the launch counts."""
+    from jolineedle_tpu_torch.utils.plotting import matplotlib_available
+
+    n_worst = int(FAILURE_RATE * EVAL_TEST)
+    launches = Counter()
+    runs = []
+    for rate in (FAILURE_RATE, FAILURE_RATE, 0.0):
+        trainer = make_trainer(rate)
+        ms, counts, panels, metrics = timed_test(port, trainer)
+        want = {k: expected_launches(EVAL_TEST, n_worst if rate else 0).get(k, 0)
+                for k in KERNEL_NAMES}
+        if counts != want:
+            raise AssertionError(f"{mode} test (failure rate {rate}): kernel launches {counts},"
+                                 f" expected {want}")
+        launches += Counter(counts)
+        n_panels = {k: len(v) for k, v in panels.items()}
+        want_panels = {"model_images": min(6, EVAL_TEST)}
+        if mode == "supervised":
+            want_panels["sample_images"] = min(6, EVAL_TEST)
+        if rate:
+            want_panels["worst_images"] = n_worst
+        require(n_panels == want_panels, f"{mode} test: panels {n_panels}, expected {want_panels}")
+        require(all(p["patches"].shape[1] == PATCH for v in panels.values() for p in v),
+                f"{mode} test: a panel's patches are not {PATCH} px")
+        images = trainer.logger.visdom.images
+        if matplotlib_available():
+            require(len(images) == len(want_panels), f"{mode} test: drawn windows {list(images)}")
+        else:
+            require(trainer._said_no_matplotlib and not images,
+                    f"{mode} test: without matplotlib the panel line was not printed, or images"
+                    " reached the logger")
+        runs.append((rate, ms, metrics))
+        say(f"{mode} test of {EVAL_TEST} images (failure rate {rate}): {ms:.1f} ms wall,"
+            f" launches {counts} as expected, panels {n_panels}")
+    (_, _, first), (_, ms_with, second), (_, ms_without, _) = runs
+    if first != second:
+        diff = {k: (first.get(k), second.get(k)) for k in set(first) | set(second)
+                if first.get(k) != second.get(k)}
+        raise AssertionError(f"{mode} test: a fresh trainer's metrics differ: {diff}")
+    say(f"{mode} test: a fresh trainer's test gave the same metrics; the worst pass"
+        f" ({n_worst} image) is {ms_with - ms_without:.1f} ms of {ms_with:.1f} ms"
+        f" ({(ms_with - ms_without) / ms_with:.1%}), {ms_without:.1f} ms without it")
+    return launches
+
+
+def eval_checkpoint_check(port, run_dir, extra, expected, want=None):
+    """``scripts/eval_checkpoint.py`` on ``run_dir``: a FULL-TEST line, the
+    expected launches, ``want``'s metrics where given, and the run directory
+    left as it was. Returns the launch counts."""
+    import contextlib
+    import io
+
+    from jolineedle_tpu_torch.scripts import eval_checkpoint
+
+    before = run_dir_state(run_dir)
+    reset_launches(port)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = eval_checkpoint.main([str(run_dir)] + extra)
+    lines = [line for line in out.getvalue().splitlines() if line.startswith("FULL-TEST: ")]
+    require(len(lines) == 1 and json.loads(lines[0][len("FULL-TEST: "):]) == got,
+            f"eval_checkpoint {run_dir.name}: no FULL-TEST line")
+    counts = check_launches(port, f"eval_checkpoint {run_dir.name}", expected)
+    require(run_dir_state(run_dir) == before, f"eval_checkpoint changed {run_dir}")
+    if want is not None:
+        require(got == want, f"eval_checkpoint {run_dir.name}: {got}, the run's own full test"
+                f" gave {want}")
+    print(lines[0])
+    say(f"eval_checkpoint {run_dir.name}: FULL-TEST printed ({len(got)} metrics"
+        + (", equal to the run's own final test" if want is not None else "")
+        + f"), {run_dir.name} unchanged ({len(before)} files, sizes and mtimes)")
+    return counts
+
+
+def nms_check(seed):
+    """``nms_mask`` on the card against the CPU on seeded boxes."""
+    from jolineedle_tpu_torch.ops.nms import nms_mask
+
+    rng = np.random.default_rng(seed + 9)
+    for n in NMS_SIZES:
+        xy = rng.uniform(0, GRID * PATCH, (n, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(16, 400, (n, 2))], 1).astype(np.float32)
+        scores = rng.uniform(size=n).astype(np.float32)
+        scores[rng.integers(0, n, n // 8)] = 0.5  # ties
+        valid = rng.uniform(size=n) > 0.1
+        args = [torch.from_numpy(a) for a in (boxes, scores, valid)]
+        want = nms_mask(*args, 0.5)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        got = nms_mask(*(a.cuda() for a in args), 0.5)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - start) * 1e3
+        require(torch.equal(got.cpu(), want), f"nms_mask N={n}: the card's keep mask differs")
+        say(f"nms_mask N={n}: the card's keep mask equals the CPU's ({int(want.sum())} kept),"
+            f" {ms:.2f} ms wall on the card (first call)")
+
+
+def eval_phase(port, seed, model_dir, sup_run):
+    """The eval and report surface: ``--measure-flops``, both trainers'
+    ``test()`` with their panels' work, ``eval_checkpoint`` on the
+    supervised train phase's run (``sup_run``: its directory and its final
+    test's metrics) and on phase 6's JAX-format run, ``infer --output-dir``
+    and ``nms_mask``. Returns the launch counts of its test cycles and
+    validations."""
+    from jolineedle_tpu_torch.infer import get_infer_args, infer
+    from jolineedle_tpu_torch.observe.logger import Logger
+    from jolineedle_tpu_torch.utils.plotting import matplotlib_available
+
+    root = ROOT / "build" / "chip_smoke_eval"
+    shutil.rmtree(root, ignore_errors=True)
+    start = time.perf_counter()
+    toy = port.generate_toy_dataset(root / "toy", n_train=2, n_test=EVAL_TEST,
+                                    image_size=(EVAL_GRID * PATCH,) * 2, seed=seed + 3,
+                                    box_size=BOX_SIZE)
+    say(f"eval: toy dataset of 2 + {EVAL_TEST} images {EVAL_GRID * PATCH}x{EVAL_GRID * PATCH} in"
+        f" {time.perf_counter() - start:.1f} s; matplotlib"
+        f" {'installed' if matplotlib_available() else 'not installed'}")
+    flags = train_flags(toy, root / "out", seed)
+    flags[flags.index("--env-name") + 1] = "eval"
+
+    flops_flags = flags + ["--measure-flops"]
+    flops_flags[flops_flags.index("--env-name") + 1] = "flops"
+    flops_check(port, flops_flags)
+
+    def make(mode):
+        mode_flags = flags + ["--training-mode", mode]
+        train_config, model_config = port.tconfig.args_to_config(port.tconfig.get_args(mode_flags))
+        train_ds, test_ds = port.build_both_datasets(train_config, model_config, str(toy))
+        torch.manual_seed(seed)
+        model = port.GPT.from_config(model_config, port.get_actions_info(train_config)).eval()
+        trainer_class = port.ReinforceTrainer if mode == "reinforce" else port.SupervisedTrainer
+
+        def make_trainer(rate):
+            train_config.failure_select_rate = rate
+            trainer = trainer_class(train_config, model, Logger(train_config, model_config),
+                                    train_ds, test_ds)
+            trainer.test_env_ids = list(range(len(test_ds)))
+            return trainer
+        return make_trainer
+
+    launches = panels_check(port, "reinforce", make("reinforce"), rl_test_launches)
+    launches += panels_check(port, "supervised", make("supervised"), sup_test_launches)
+
+    run_dir, full_test = sup_run
+    recorded = Path(json.loads((run_dir / "config.json").read_text())["train"]["dataset_dir"])
+    n_run_test = len((recorded / "test.txt").read_text().splitlines())
+    launches += eval_checkpoint_check(port, run_dir, [], sup_test_launches(n_run_test),
+                                      want=full_test)
+    jax_run = model_dir.parent / "jax_files" / "run"
+    launches += eval_checkpoint_check(
+        port, jax_run, ["--dataset-dir", str(toy)],
+        rl_test_launches(EVAL_TEST, int(FAILURE_RATE * EVAL_TEST)))
+
+    image = sorted((toy / "images").glob("test_*.png"))[0]
+    args = get_infer_args(["--model-dir", str(model_dir), "--input-images", str(image),
+                           "--output-dir", str(root / "infer")])
+    reset_launches(port)
+    if matplotlib_available():
+        infer(args)
+        require((root / "infer" / "result0.png").exists(), "infer --output-dir: no result0.png")
+        say("infer --output-dir: result0.png written")
+        launches += Counter(read_launches(port))
+    else:
+        try:
+            infer(args)
+        except ImportError as e:
+            require("matplotlib" in str(e), f"infer --output-dir: {e}")
+            check_launches(port, "infer --output-dir without matplotlib (raised first)", {})
+            say(f"infer --output-dir raised before any rollout: {e}")
+        else:
+            raise AssertionError("infer --output-dir ran without matplotlib")
+
+    nms_check(seed)
+    say(f"eval: the phase took {time.perf_counter() - start:.1f} s")
+    return launches
 
 
 def import_port():
@@ -1830,6 +2133,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device-data-cache", choices=("auto", "on", "off"), default="auto",
                         help="the train CLI's flag in both train phases (off: stream the pixels)")
     args = parser.parse_args(argv)
+    script_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 1
@@ -1883,7 +2187,7 @@ def main(argv=None) -> int:
     supervised_reference(models, state, args.seed)
     del models, model
 
-    # 5-11. the paths, each read on its own, and the device pool
+    # 5-12. the paths, each read on its own, and the device pool
     toy = toy_dataset(port, args.seed)
     by_path = {"serve": serve_phase(port, model_dir, args.seed),
                "jax_files": jax_files_phase(port, model_dir, args.seed),
@@ -1893,10 +2197,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path["train"] = train_phase(port, args.seed, toy, args.device_data_cache)
     torch.cuda.empty_cache()
-    by_path["supervised"] = sup_train_phase(port, args.seed, toy, args.device_data_cache)
+    by_path["supervised"], sup_run = sup_train_phase(port, args.seed, toy, args.device_data_cache)
+    torch.cuda.empty_cache()
+    by_path["eval"] = eval_phase(port, args.seed, model_dir, sup_run)
     launches = sum(by_path.values(), Counter())
     for name in KERNEL_NAMES:
         require(launches[name] > 0, f"{name} was launched no time on its path")
+    say(f"chip_smoke: every phase passed in {time.perf_counter() - script_start:.1f} s")
 
     print(json.dumps({"kernels": kernels_json(rows, new_rows, wide_rows, launches, by_path)}),
           flush=True)

@@ -13,7 +13,10 @@ over the images that have targets.
 ``infer_image`` is the per-image body on numpy arrays (no PIL), so a script
 can serve images it made itself. A ``config.json`` that sets
 ``--no-recurrent-embedding`` serves through the full-prefix rollout.
-``--output-dir`` (trajectory plots) is not ported yet and raises.
+``--output-dir`` draws each image's trajectory and its full-image
+predictions (``utils/plotting.py``, no targets) into ``result<N>.png`` there
+(``infer.py:193-210``); it needs matplotlib, and without it the CLI raises
+before the first rollout.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ from .env.oracle import gather_patches
 from .models.gpt import GPT
 from .ops.nms import postprocess, sigmoid_np
 from .train.rollout import compute_rollout_metrics, eval_rollout, to_numpy
+from .utils.geometry import parse_bbox_predictions
 from .utils.metrics import compute_detection_metrics, patch_bboxes2full_image
+from .utils.plotting import plot_model_prediction, pyplot, save_image
 
 
 def get_infer_args(args=None):
@@ -111,8 +116,9 @@ def infer_image(
     generator seeded by ``seed``), detect on the visited patches and, when
     ``boxes`` ``[n, 4]`` are given, score.
 
-    Returns the rollout (numpy, batch of 1), ``positions``, ``n_valid``,
-    the full-image predictions, ``obj_count``, ``metrics`` (or None),
+    Returns the rollout (numpy, batch of 1), the padded ``image``,
+    ``positions``, ``n_valid``, the visited ``patches``, the full-image
+    predictions, ``obj_count``, ``metrics`` (or None),
     ``rollout_ms`` (the rollout alone, as ``infer.py:165-169`` times it) and
     ``request_ms`` (rollout, detection and postprocess). ``warm_up`` runs the
     rollout once first, outside both times.
@@ -174,8 +180,10 @@ def infer_image(
         metrics.update(compute_detection_metrics(full_img_preds, full_img_targets))
     return {
         "rollout": ro,
+        "image": image,
         "positions": positions,
         "n_valid": n_valid,
+        "patches": patches,
         "preds": full_img_preds[0],
         "obj_count": 0 if full_img_preds[0] is None else len(full_img_preds[0]),
         "metrics": metrics,
@@ -186,11 +194,10 @@ def infer_image(
 
 def infer(args, device=None):
     """The CLI body: every image of ``--dataset`` and ``--input-images``."""
-    if args.output_dir:
-        raise NotImplementedError(
-            "--output-dir (trajectory plots) is not yet ported to jolineedle_tpu_torch"
-        )
     device = resolve_device(device)
+    if args.output_dir:
+        pyplot("infer --output-dir")
+        os.makedirs(args.output_dir, exist_ok=True)
     train_config, _, model = load_model_dir(args.model_dir, device, args.detection_checkpoint)
 
     image_paths, target_paths = [], []
@@ -217,6 +224,11 @@ def infer(args, device=None):
         out = infer_image(model, train_config, image, boxes, seed=img_id, warm_up=img_id == 0)
         print("Found %d objects in %d steps and %0.2fms"
               % (out["obj_count"], out["positions"].shape[0], out["rollout_ms"]))
+        if args.output_dir:
+            save_image(plot_model_prediction(
+                out["image"], out["patches"], out["positions"][: out["n_valid"]],
+                true_bboxes=[], predicted_bboxes=parse_bbox_predictions([out["preds"]])),
+                os.path.join(args.output_dir, "result%d.png" % img_id))
         if out["metrics"] is not None:
             for name, value in out["metrics"].items():
                 all_metrics[name].append(float(value))

@@ -19,9 +19,14 @@ pixels fit the budget, else streams each batch's pixels; ``on`` always keeps
 it there, ``off`` always streams. Each trainer prints the route it took and
 keeps the pool as ``trainer.pool`` (None when streaming).
 
-Not ported yet, and refused with "not yet ported": ``--measure-flops``,
-``--steps-per-dispatch`` above 1 (a TPU dispatch workaround) and more than
-one device in ``--devices``.
+``--measure-flops`` builds the trainer as for training (datasets, model,
+checkpoints to load), prints the FLOP and parameter report of
+``utils/flops.py`` (counted on a ``meta`` copy of the model: no kernel runs)
+and returns without training.
+
+Not ported yet, and refused with "not yet ported": ``--steps-per-dispatch``
+above 1 (a TPU dispatch workaround) and more than one device in
+``--devices``.
 """
 
 from __future__ import annotations
@@ -61,7 +66,6 @@ def build_both_datasets(train_config, model_config, dataset_dir):
 
 def _refuse_unported(train_config) -> None:
     refused = {
-        "--measure-flops": bool(train_config.measure_flops),
         "--steps-per-dispatch > 1": int(getattr(train_config, "steps_per_dispatch", 1)) > 1,
         "more than one device in --devices": len(train_config.gpu_ids) > 1,
     }
@@ -74,7 +78,8 @@ def _refuse_unported(train_config) -> None:
 
 def launch_training(train_config, model_config, dataset_dir, device=None):
     """Build the datasets, model, logger and trainer, restore what the flags
-    ask for, and train. Returns the trainer."""
+    ask for, and train (or, with ``--measure-flops``, print the FLOP report
+    instead). Returns the trainer."""
     _refuse_unported(train_config)
     device = resolve_device(device)
     train_dataset, test_dataset = build_both_datasets(train_config, model_config, dataset_dir)
@@ -109,6 +114,12 @@ def launch_training(train_config, model_config, dataset_dir, device=None):
     if train_config.detection_checkpoint is not None:
         print("Load detection checkpoint from", train_config.detection_checkpoint)
         trainer.load_detection_checkpoint(train_config.detection_checkpoint)
+
+    if train_config.measure_flops:
+        from .utils.flops import measure_flops
+
+        trainer.flops_report = measure_flops(trainer, model_config, train_config)
+        return trainer
 
     trainer.run()
     return trainer

@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from .kernels import kernel
+from .kernels import PLAIN_DEVICES, kernel
 
 NEG_INF = -1e30
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -205,7 +205,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v):
-        if q.device.type == "cpu":
+        if q.device.type in PLAIN_DEVICES:
             o, lse = flash_attention_forward_reference(q, k, v)
         else:
             o, lse = flash_attention_launch(q, k, v)
@@ -223,7 +223,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     {16, 32, 64}, float32 or bfloat16; differentiable.
 
     Replaces ``jolineedle_tpu/ops/attention.py:101`` (Pallas, K and V whole
-    in VMEM, T a multiple of the block). On a CPU tensor it computes
+    in VMEM, T a multiple of the block). On a CPU or meta tensor it computes
     :func:`flash_attention_reference`; on a CUDA tensor it launches
     ``csrc/flash_attention.cu`` through :class:`FlashAttention` or raises.
     The kernel reads q, k and v through their strides (D contiguous, else it
@@ -231,7 +231,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     for the model's transposed ``c_attn`` views, in and out.
     """
     flash_attention.calls += 1
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_reference(q, k, v)
     _check_launch(q, k, v)
     return FlashAttention.apply(q, k, v)

@@ -12,9 +12,10 @@ vectors):
 - ``conv3x3`` replaces ``scripts/smoke_pallas_conv.py:67`` ``pallas_conv3x3``
   (kernel ``csrc/conv3x3.cu``, the same tiled body with no epilogue).
 
-On a CPU tensor a wrapper computes its plain version (``*_reference``, the
-same arithmetic in PyTorch ops); on a CUDA tensor it launches its kernel or
-raises — there is no fallback. BatchNorm is folded to a per-channel scale
+On a CPU tensor (or a meta tensor, which carries shapes only) a wrapper
+computes its plain version (``*_reference``, the same arithmetic in PyTorch
+ops); on a CUDA tensor it launches its kernel or raises — there is no
+fallback. BatchNorm is folded to a per-channel scale
 and bias in float32, as ``_fold_bn`` does in the JAX package: here for the
 dense 3x3 kernels, inside the kernel for ``dwblock_bn_silu``. ``x`` and
 the output are float32 or bfloat16; the kernels accumulate in float32. The
@@ -29,7 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .kernels import kernel
+from .kernels import PLAIN_DEVICES, kernel
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: The widest C and K that ``dwblock_bn_silu``'s kernel takes.
@@ -139,7 +140,7 @@ def dwblock_bn_silu(
     up to 256, any B, H, W >= 1 and a contiguous x at any storage offset.
     """
     dwblock_bn_silu.calls += 1
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return dwblock_bn_silu_reference(
             x, dw, gamma1, beta1, mean1, var1, pw, gamma2, beta2, mean2, var2, eps
         )
@@ -216,7 +217,7 @@ def conv3x3_bn_silu(x, w, gamma, beta, mean, var, eps=1e-3):
     ``nn.Conv(dtype=bfloat16)`` does.
     """
     conv3x3_bn_silu.calls += 1
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return conv3x3_bn_silu_reference(x, w, gamma, beta, mean, var, eps)
     C, K = x.shape[-1], w.shape[-1]
     _check_launch(
@@ -274,7 +275,7 @@ def conv3x3(x, w):
     in x's dtype: no padded copy and no im2col in HBM.
     """
     conv3x3.calls += 1
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return conv3x3_reference(x, w)
     C, K = x.shape[-1], w.shape[-1]
     _check_launch("conv3x3", x, dict(w=w), dict(w=(3, 3, C, K)))

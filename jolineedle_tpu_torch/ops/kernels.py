@@ -20,6 +20,10 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
+#: Where a wrapper computes its plain version instead of launching: a CPU
+#: tensor, or a meta tensor (shapes only; nothing runs, as in a FLOP count).
+#: On any other device it launches its kernel or raises.
+PLAIN_DEVICES = ("cpu", "meta")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (

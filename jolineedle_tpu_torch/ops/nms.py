@@ -1,8 +1,8 @@
 """Detection postprocess: confidence filtering + class-agnostic NMS.
 
 The numpy half of ``jolineedle_tpu/ops/nms.py`` (lines 22-105), copied as
-functions: that module imports JAX at its top. The fixed-shape device NMS
-(``nms_mask``) waits for the training slices.
+functions: that module imports JAX at its top. ``nms_mask`` is its
+fixed-shape device NMS (``nms.py:107-144``) on tensors.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 
 def sigmoid_np(x) -> np.ndarray:
@@ -88,3 +89,38 @@ def postprocess(
         )
         out.append(rows)
     return out
+
+
+def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             iou_threshold: float) -> torch.Tensor:
+    """Fixed-shape greedy NMS: the keep mask ``[N]`` of ``[N, 4]`` xyxy
+    ``boxes`` with ``[N]`` ``scores`` among the ``[N]`` bool ``valid`` rows
+    (``jolineedle_tpu/ops/nms.py:107-144``).
+
+    N iterations, each keeping the best remaining box (the first of tied
+    scores) and suppressing the boxes whose IoU with it exceeds the
+    threshold. No shape depends on the data and nothing waits for the
+    device inside the loop: the pairwise IoU ``[N, N]`` is computed once,
+    with each entry's arithmetic that of the JAX ``iou_with`` row."""
+    n = boxes.shape[0]
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1).clamp_min(0) * (y2 - y1).clamp_min(0)
+    xx1 = torch.maximum(x1[:, None], x1[None, :])
+    yy1 = torch.maximum(y1[:, None], y1[None, :])
+    xx2 = torch.minimum(x2[:, None], x2[None, :])
+    yy2 = torch.minimum(y2[:, None], y2[None, :])
+    inter = (xx2 - xx1).clamp_min(0) * (yy2 - yy1).clamp_min(0)
+    iou = inter / (area[:, None] + area[None, :] - inter).clamp_min(1e-12)
+    over = iou > iou_threshold
+    idx = torch.arange(n, device=boxes.device)
+    remaining = valid.clone()
+    keep = torch.zeros(n, dtype=torch.bool, device=boxes.device)
+    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype, device=scores.device)
+    for _ in range(n):
+        i = torch.argmax(torch.where(remaining, scores, neg_inf)).reshape(1)
+        any_left = remaining.any()
+        picked = idx == i
+        keep = keep | (picked & any_left)
+        suppress = over.index_select(0, i)[0] & any_left
+        remaining = remaining & ~suppress & ~picked
+    return keep

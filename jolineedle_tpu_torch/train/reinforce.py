@@ -40,7 +40,7 @@ from ..env.oracle import gather_patches
 from ..ops.augment import detection_augment
 from ..ops.nms import postprocess, sigmoid_np
 from ..ops.simota import yolox_losses
-from ..utils.geometry import merge_boxes_batched
+from ..utils.geometry import BBox, Position, merge_boxes_batched, parse_bbox_predictions
 from ..utils.metrics import compute_detection_metrics, patch_bboxes2full_image
 from .batching import Prefetcher
 from .rollout import compute_rollout_metrics, rollout
@@ -367,12 +367,21 @@ class ReinforceTrainer(Trainer):
         padded[:n_valid] = patches
         return {"patches": padded, "valid": np.arange(T_pad) < n_valid}, patches
 
-    def eval_on_sample(self, item: dict, rollout: dict, dets: Optional[dict] = None):
-        """Rollout and detection metrics of one eval image (reference:
-        src/reinforce.py:417-493; ``reinforce.py:659-794`` without the
-        trajectory plot, which waits for the plotting port)."""
+    def eval_on_sample(self, item: dict, plot_traj: bool = False, sample_actions: bool = False,
+                       rollout: Optional[dict] = None, dets: Optional[dict] = None):
+        """Rollout and detection metrics of one eval image, and with
+        ``plot_traj`` its trajectory panel (reference: src/reinforce.py:
+        417-493; ``reinforce.py:659-794``). Returns (metrics, panel), the
+        panel as :meth:`_panel` builds it, or None.
+
+        ``rollout`` and ``dets`` come batched across images from
+        :meth:`test`; without them this runs the image's own eval rollout
+        and detections (the standalone path of the worst-images pass)."""
         cfg = self.config
         boxes = np.asarray(item["bboxes"], np.float32).reshape(-1, 4)
+        if rollout is None:
+            rollout = self._batched_eval_rollouts([{"image": item["image"], "boxes": boxes}],
+                                                  sample_actions)[0]
         ro = rollout
         metrics = self.compute_rollout_metrics(ro)
         positions = ro["positions"][0]
@@ -380,7 +389,7 @@ class ReinforceTrainer(Trainer):
         full_img_targets = [np.concatenate(
             [np.zeros((len(boxes), 1), np.float64), boxes.astype(np.float64)], axis=1)]
         if not cfg.detection_enabled:
-            return metrics
+            return metrics, self._panel(item, boxes, positions[:n_valid], None) if plot_traj else None
         traj_req, _ = self._traj_det_request(item, ro)
         traj_det = dets["traj"] if dets is not None else self._batched_patch_detections([traj_req])[0]
         head = traj_det["head"]
@@ -425,17 +434,35 @@ class ReinforceTrainer(Trainer):
                 metrics["yolo_" + name] = value
             for name, value in det_result["losses"].items():
                 metrics["yolo_" + name] = float(value)
-        return metrics
+        panel = self._panel(item, boxes, positions[:n_valid], full_img_preds[0]) if plot_traj else None
+        return metrics, panel
+
+    def _panel(self, item, boxes, positions, preds) -> dict:
+        """The :func:`plot_model_prediction` keywords of one trajectory
+        (``reinforce.py:781-793``): the image, the visited patches and
+        positions, the true boxes and the full-image predictions ``preds``
+        (rows, or None)."""
+        return dict(
+            image=item["image"], positions=positions,
+            patches=gather_patches(item["image"], positions, self.config.patch_size),
+            true_bboxes=[BBox(Position(y=b[1], x=b[0]), Position(y=b[3], x=b[2])) for b in boxes],
+            predicted_bboxes=parse_bbox_predictions([preds]))
 
     def test(self, sample_actions: bool = False):
-        """Test cycle (reference: src/reinforce.py:364-415): batched eval
-        rollouts, batched detections, per-image metrics, best-checkpoint
-        tracking, checkpoints and ``metrics.json``. The model and failure
-        image panels wait for the plotting port."""
+        """Test cycle (reference: src/reinforce.py:364-415;
+        ``reinforce.py:796-870``): batched eval rollouts, batched
+        detections, per-image metrics; the trajectory panels of up to 6
+        images picked by ``visual_rng``; with ``--failure-select-rate``, the
+        worst images' panels, each from its own fresh rollout; then
+        best-checkpoint tracking, the checkpoints and ``metrics.json``."""
         dataset = copy.copy(self.test_dataset)
         dataset.translations = dataset.rotations = False
+        env_ids = self.test_env_ids
+        panels = {"model_images": []}
+        visual_ids = set(self.visual_rng.choice(
+            np.arange(len(env_ids)), size=min(6, len(env_ids)), replace=False).tolist())
         items = [dataset.__getitem__(int(env_id), np.random.default_rng(loop_id))
-                 for loop_id, env_id in enumerate(self.test_env_ids)]
+                 for loop_id, env_id in enumerate(env_ids)]
         rollouts = self._batched_eval_rollouts(
             [{"image": it["image"], "boxes": it["bboxes"]} for it in items], sample_actions)
         dets_list = [None] * len(items)
@@ -448,13 +475,25 @@ class ReinforceTrainer(Trainer):
             dets_list = [{"traj": td, "batch": b, "batch_det": bd}
                          for td, b, bd in zip(traj_dets, batches, batch_dets)]
         all_metrics = defaultdict(list)
-        for item, ro, dets in zip(items, rollouts, dets_list):
-            for name, value in self.eval_on_sample(item, ro, dets).items():
+        for loop_id, (item, ro, dets) in enumerate(zip(items, rollouts, dets_list)):
+            plot_traj = loop_id in visual_ids
+            metrics, panel = self.eval_on_sample(item, plot_traj, sample_actions, ro, dets)
+            if plot_traj:
+                panels["model_images"].append(panel)
+            for name, value in metrics.items():
                 all_metrics[name].append(value)
+
+        worst_count = int(self.config.failure_select_rate * len(dataset))
+        if worst_count > 0 and all_metrics[self.best_metric_name]:
+            worst_ids = self.worst_ids(all_metrics, len(env_ids), worst_count)
+            panels["worst_images"] = []
+            for worst_id in worst_ids:
+                item = dataset.__getitem__(int(np.asarray(env_ids)[worst_id]),
+                                           np.random.default_rng(int(worst_id)))
+                panels["worst_images"].append(self.eval_on_sample(item, True)[1])
 
         self.last_test_metrics = all_metrics
         self.record_best_metric(all_metrics)
-        if self.logger is not None:
-            self.logger.log_to_visdom(all_metrics, {}, "test")
+        self.log_eval(all_metrics, panels, "test")
         self.save_state()
         self.save_metrics()

@@ -32,11 +32,17 @@ augmentation; the JAX step splits one key three ways instead, so the draws
 differ (the losses on the same augmented patches do not, see
 :func:`decision_loss` and :func:`detection_loss`).
 
+The eval's trajectory panels (the model's and the oracle's trajectories of
+up to 6 images picked by ``visual_rng``, and with ``--failure-select-rate``
+the worst images' trajectories from a second ``eval_envs``) are built on
+every test, matplotlib or not, and drawn by ``Trainer.log_eval``. The
+worst-images pass runs without the JAX trainer's ``try/except`` around it
+(``supervised.py:915-930``): it launches the conv kernels, and a failure
+there fails the test. It ranks the images by ``Trainer.worst_ids``, which
+averages a per-episode criterion over each image's starts.
+
 Not ported: ``_build_multi_train_step`` (``--steps-per-dispatch > 1``, a
-TPU dispatch workaround, which ``main.py`` refuses), and the plot panels of
-``eval_envs`` (the model's and the oracle's trajectory images) and the
-worst-images pass of ``test`` (``--failure-select-rate``): they only feed
-plots and wait for the plotting port, so the logger receives no images.
+TPU dispatch workaround, which ``main.py`` refuses).
 """
 
 from __future__ import annotations
@@ -52,10 +58,11 @@ import torch.nn.functional as F
 from ..data.device_pool import aug_canvases, gather_canvas_patches, gather_pool_patches
 from ..env.actions import Action
 from ..env.batched_env import NeedleEnv
-from ..env.oracle import OracleEnv, gather_patches, move_towards
+from ..env.oracle import OracleEnv, gather_patches, generate_sample, move_towards
 from ..ops.augment import detection_augment
 from ..ops.nms import nms_numpy, postprocess, sigmoid_np
 from ..ops.simota import yolox_losses
+from ..utils.geometry import BBox, Position, parse_bbox_predictions, parse_bbox_targets
 from ..utils.metrics import average_precision_50
 from .batching import Prefetcher, build_supervised_batch
 from .rollout import rollout
@@ -438,13 +445,21 @@ class SupervisedTrainer(Trainer):
     # --- full evaluation (reference: src/supervised.py:638-810) -----------------
     def eval_envs(self, dataset, env_ids, eval_mode: str = "multistart",
                   sample_actions: bool = False):
-        """The autoregressive eval of ``env_ids`` (``supervised.py:651-805``,
-        without the plot panels): the start positions of each image
-        (``multistart``: two random, ``rollouts``: the env's twice,
-        ``corners``: the four corners), one batched rollout pass, the host
-        replays, one batched detection pass, then each episode's metrics
-        and the multi-start mAP and found proportions. Returns the metrics
-        as lists."""
+        """The autoregressive eval of ``env_ids`` (``supervised.py:651-805``):
+        the start positions of each image (``multistart``: two random,
+        ``rollouts``: the env's twice, ``corners``: the four corners), one
+        batched rollout pass, the host replays, one batched detection pass,
+        then each episode's metrics and the multi-start mAP and found
+        proportions. Returns (metrics as lists, panels): for up to 6 images
+        picked by ``visual_rng``, ``model_images`` holds the first start's
+        trajectory with its targets and predictions and ``sample_images``
+        the oracle's trajectory from that start, each as
+        ``plot_model_prediction`` keywords. The oracle sample draws from the
+        episode's seeded generator (``OracleEnv.rng``, seeded with the
+        episode's index), as the JAX eval's does: the same panel each run."""
+        visual_ids = set(self.visual_rng.choice(
+            np.arange(len(env_ids)), size=min(6, len(env_ids)), replace=False).tolist())
+        panels = {"model_images": [], "sample_images": []}
         all_metrics = defaultdict(list)
         cfg = self.config
         episodes = []  # (item, env, positions)
@@ -482,7 +497,7 @@ class SupervisedTrainer(Trainer):
         dets = self._batched_patch_detections([rep["det_request"] for rep in reps])
 
         row_id = 0
-        for item, env, positions in episodes:
+        for loop_id, (item, env, positions) in enumerate(episodes):
             all_samples, all_bboxes = [], []
             for _ in positions:
                 sample, metrics, bboxes = self._finish_episode(reps[row_id], dets[row_id])
@@ -500,7 +515,28 @@ class SupervisedTrainer(Trainer):
                 all_metrics[f"prop_patches_found_traj{suffix}"].append(
                     len(visited & env.bbox_patches) / len(env.bbox_patches)
                     if env.bbox_patches else 0.0)
-        return all_metrics
+
+            if loop_id in visual_ids:
+                sample = all_samples[0]
+                panels["model_images"].append(dict(
+                    image=item["image"], patches=sample["patches"],
+                    positions=sample["positions"],
+                    true_bboxes=parse_bbox_targets(sample["local_bboxes"], sample["positions"],
+                                                   cfg.patch_size),
+                    predicted_bboxes=parse_bbox_predictions(all_bboxes[0], sample["positions"],
+                                                            cfg.patch_size)))
+                gen = generate_sample(
+                    env, max_ep_len=env.patch_width * env.patch_height,
+                    min_keypoints=dataset.min_keypoints, max_keypoints=dataset.max_keypoints,
+                    binomial_keypoints=dataset.binomial_keypoints, position=positions[0])
+                n = int(gen["masks"].sum())
+                panels["sample_images"].append(dict(
+                    image=item["image"],
+                    patches=gather_patches(item["image"], gen["positions"][:n], cfg.patch_size),
+                    positions=gen["positions"][:n],
+                    true_bboxes=[BBox(Position(y=b[1], x=b[0]), Position(y=b[3], x=b[2]))
+                                 for b in env.raw_bboxes]))
+        return all_metrics, panels
 
     def eval_supervised(self, dataset, env_ids):
         """Teacher-forced eval on oracle batches of ``env_ids`` in chunks of
@@ -557,11 +593,15 @@ class SupervisedTrainer(Trainer):
         return all_metrics
 
     def test(self, sample_actions: bool = False):
-        """Test cycle (``supervised.py:892-942``, without the worst-images
-        pass): the autoregressive and the teacher-forced eval on the test
-        set (and the training set with ``--eval-training-set``), each on an
-        un-augmented view of its dataset; best-checkpoint tracking, the
-        checkpoints and ``metrics.json``."""
+        """Test cycle (``supervised.py:892-942``): the autoregressive eval
+        with its panels, the worst-images pass (``--failure-select-rate``:
+        a second ``eval_envs`` on the images with the lowest best-metric
+        values, averaged over each image's starts, whose model panels become
+        ``worst_images``) and the
+        teacher-forced eval, on the test set (and the training set with
+        ``--eval-training-set``), each on an un-augmented view of its
+        dataset; best-checkpoint tracking, the checkpoints and
+        ``metrics.json``."""
         cfg = self.config
         evals = [(self.test_dataset, self.test_env_ids, "test")]
         if cfg.eval_training_set:
@@ -571,12 +611,16 @@ class SupervisedTrainer(Trainer):
             # building augmented training batches from the original meanwhile.
             dataset = copy.copy(dataset)
             dataset.translations = dataset.rotations = False
-            metrics = self.eval_envs(dataset, env_ids, sample_actions=sample_actions)
+            metrics, panels = self.eval_envs(dataset, env_ids, sample_actions=sample_actions)
+            worst_count = int(cfg.failure_select_rate * len(dataset))
+            if worst_count > 0 and metrics[self.best_metric_name]:
+                worst_ids = self.worst_ids(metrics, len(env_ids), worst_count)
+                _, worst = self.eval_envs(dataset, np.asarray(env_ids)[worst_ids])
+                panels["worst_images"] = worst["model_images"]
             for name, values in self.eval_supervised(dataset, env_ids).items():
                 metrics["supervised_" + name] = values
             self.last_test_metrics = metrics
             self.record_best_metric(metrics)
-            if self.logger is not None:
-                self.logger.log_to_visdom(metrics, {}, mode)
+            self.log_eval(metrics, panels, mode)
         self.save_state()
         self.save_metrics()

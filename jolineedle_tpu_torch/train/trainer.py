@@ -32,6 +32,7 @@ from .. import resolve_device
 from ..data.device_pool import DeviceImagePool
 from ..env.actions import get_actions_info
 from ..ops.simota import yolox_losses
+from ..utils.plotting import MISSING, matplotlib_available, plot_model_prediction
 from .optim import Optimizer
 from .rollout import eval_rollout, to_numpy
 
@@ -69,6 +70,10 @@ class Trainer:
             self.train_env_ids = rng.choice(list(range(len(train_dataset))),
                                             size=(config.test_samples,))
         self.rng = rng
+        # Picks the eval episodes to plot, and nothing else draws from it
+        # (``trainer.py:74-77``): the same picks as the JAX trainer's.
+        self.visual_rng = np.random.default_rng(config.seed + 2)
+        self._said_no_matplotlib = False
 
         if getattr(config, "best_metric", None):
             self.best_metric_name = config.best_metric
@@ -130,6 +135,36 @@ class Trainer:
             event = torch.cuda.Event(enable_timing=True)
             event.record()
             self.phase_events.append((phase, event))
+
+    def log_eval(self, metrics, panels, mode: str) -> None:
+        """Hand an eval's metrics and trajectory panels to the logger, if
+        any. ``panels``: window key (``model_images``, ...) -> a list of
+        :func:`plot_model_prediction` keyword dicts, drawn here; without
+        matplotlib none is drawn or handed over, and one line per trainer
+        says so."""
+        if self.logger is None:
+            return
+        images = {}
+        if any(panels.values()):
+            if matplotlib_available():
+                images = {k: [plot_model_prediction(**p) for p in v] for k, v in panels.items()}
+            elif not self._said_no_matplotlib:
+                print(f"trajectory panels not drawn: {MISSING}", flush=True)
+                self._said_no_matplotlib = True
+        self.logger.log_to_visdom(metrics, images, mode)
+
+    def worst_ids(self, metrics, n_images: int, count: int) -> np.ndarray:
+        """Indices into an eval's ``n_images`` images of the ``count`` with
+        the lowest best-checkpoint criterion, by ``np.argsort`` as in the JAX
+        trainers. A criterion with one value per episode (several starts
+        per image, image-major) is first averaged over each image's starts,
+        where the JAX supervised trainer reads an episode's index as an
+        image's and fails past the last image."""
+        values = np.asarray(metrics[self.best_metric_name], np.float64)
+        if len(values) % n_images:
+            raise ValueError(f"best-checkpoint criterion {self.best_metric_name!r} has "
+                             f"{len(values)} values for {n_images} images")
+        return np.argsort(values.reshape(n_images, -1).mean(axis=1))[:count]
 
     # --- checkpointing (reference: src/trainer.py:73-165) ------------------
     def save_metrics(self):

@@ -79,14 +79,29 @@ def test_backward_matches_autograd_of_plain(shape):
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5, msg=f"d{name}")
 
 
-def test_non_cpu_tensor_never_falls_back():
-    """A tensor that is not on the CPU launches or raises: a "meta" tensor is
-    refused before any pointer is passed, and an unsupported head dim too."""
-    q, k, v = (torch.from_numpy(a).to("meta") for a in _qkv((1, 1, 8, 16), 3))
-    with pytest.raises(ValueError, match="runs on CUDA"):
-        tattn.flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="runs on CUDA"):
-        tattn.causal_attention(q, k, v)
+def test_non_cpu_tensor_never_falls_back(monkeypatch):
+    """A CUDA tensor launches or raises, never computing the plain version:
+    here fake CUDA tensors (``FakeTensorMode``: shapes and a device, no
+    memory) reach the launch, whose ``kernel`` is a stub that raises, or
+    fail earlier on a build without CUDA; an unsupported head dim is refused
+    before that. Only CPU and meta tensors take the plain version."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def no_kernel(name):
+        raise RuntimeError(f"kernel stub: {name} would launch")
+
+    monkeypatch.setattr(tattn, "kernel", no_kernel)
+    tattn.reset_counts()
+    with FakeTensorMode():
+        q = torch.empty((1, 1, 8, 16), device="cuda")
+        with pytest.raises(RuntimeError):
+            tattn.flash_attention(q, q, q)
+        with pytest.raises(RuntimeError):
+            tattn.causal_attention(q, q, q)
+        q = torch.empty((1, 1, 8, 24), device="cuda")
+        with pytest.raises(ValueError, match="head dim 24"):
+            tattn.flash_attention(q, q, q)
+    assert tattn.flash_attention.launches == 0
 
 
 @pytest.mark.parametrize("T", [1, 21, 33])
@@ -230,11 +245,15 @@ def test_flash_ablation_edits_match_the_source(variant):
 
 def test_launch_refuses_strided_head_dim():
     """A head dim that is not contiguous is refused, never copied (checked
-    before the device, so a "meta" tensor shows it); on the CPU the plain
-    version takes any strides."""
-    q = torch.zeros((1, 1, 8, 32), device="meta")[..., ::2]
-    with pytest.raises(ValueError, match="head dim has stride 2"):
-        tattn.flash_attention(q, q, q)
+    before any pointer is passed, so a fake CUDA tensor of
+    ``FakeTensorMode`` shows it); on the CPU the plain version takes any
+    strides."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        q = torch.empty_strided((1, 1, 8, 16), (256, 256, 32, 2), device="cuda")
+        with pytest.raises(ValueError, match="head dim has stride 2"):
+            tattn.flash_attention(q, q, q)
     q = torch.zeros((1, 1, 8, 32))[..., ::2]
     assert tattn.flash_attention(q, q, q).shape == (1, 1, 8, 16)
 

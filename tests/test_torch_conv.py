@@ -247,14 +247,27 @@ def test_cpu_path_does_not_launch():
             == tconv.conv3x3.launches == 0)
 
 
-def test_non_cpu_tensor_never_falls_back():
-    """A tensor that is not on the CPU launches or raises: here, a "meta"
-    tensor is refused before any pointer is passed."""
-    args = [torch.from_numpy(a).to("meta") for a in _conv_inputs(CONV_SHAPES[0], 3)]
-    with pytest.raises(ValueError, match="runs on CUDA"):
-        tconv.conv3x3_bn_silu(*args)
-    with pytest.raises(ValueError, match="runs on CUDA"):
-        tconv.conv3x3(*args[:2])
+def test_non_cpu_tensor_never_falls_back(monkeypatch):
+    """A CUDA tensor launches or raises, never computing the plain version:
+    here fake CUDA tensors (``FakeTensorMode``: shapes and a device, no
+    memory) reach the launch, whose ``kernel`` is a stub that raises, or
+    fail earlier on a build without CUDA. Only CPU and meta tensors take
+    the plain version (a meta one: shapes only, ``tests/test_torch_flops.py``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def no_kernel(name):
+        raise RuntimeError(f"kernel stub: {name} would launch")
+
+    monkeypatch.setattr(tconv, "kernel", no_kernel)
+    tconv.reset_counts()
+    shapes = [a.shape for a in _conv_inputs(CONV_SHAPES[0], 3)]
+    with FakeTensorMode():
+        args = [torch.empty(shape, device="cuda") for shape in shapes]
+        with pytest.raises(RuntimeError):
+            tconv.conv3x3_bn_silu(*args)
+        with pytest.raises(RuntimeError):
+            tconv.conv3x3(*args[:2])
+    assert tconv.conv3x3_bn_silu.launches == tconv.conv3x3.launches == 0
 
 
 def test_module_imports_without_nvcc_or_triton():

@@ -3,7 +3,8 @@
 The port keeps its own copies of the framework-free modules it needs (the JAX
 package's ``__init__`` imports JAX), so each copied function is run on the
 same inputs, made from a numpy seed, on both sides and must give identical
-results: the copies may not drift from the reference.
+results: the copies may not drift from the reference. ``nms_mask``, the
+fixed-shape NMS on tensors, gives the JAX keep mask exactly.
 """
 
 import tempfile
@@ -11,6 +12,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
+
+import jax.numpy as jnp
 
 import jolineedle_tpu.config as jconfig
 import jolineedle_tpu.data.dataset as jdataset
@@ -28,6 +32,10 @@ import jolineedle_tpu_torch.env.parsing as tparsing
 import jolineedle_tpu_torch.ops.nms as tnms
 import jolineedle_tpu_torch.utils.geometry as tgeometry
 import jolineedle_tpu_torch.utils.metrics as tmetrics
+
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
 
 P, NV, NH = 32, 3, 4
 
@@ -228,3 +236,29 @@ def test_config_flags_and_defaults_match_jax(tmp_path):
     assert vars(targs) == vars(jargs)
     for want, got in zip(jconfig.args_to_config(jargs), tconfig.args_to_config(targs)):
         assert got.to_dict() == want.to_dict()
+
+
+@pytest.mark.parametrize("threshold", [0.3, 0.5, 0.7])
+@pytest.mark.parametrize("n", [1, 7, 64])
+def test_nms_mask_equals_jax(n, threshold):
+    """Seeded overlapping boxes with invalid rows and tied scores (ties
+    keep the lowest index, as ``jnp.argmax`` does); then all rows invalid
+    and all boxes identical with one score."""
+    rng = np.random.default_rng(n)
+    xy = rng.uniform(0, 120, (n, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(4, 60, (n, 2))], 1).astype(np.float32)
+    boxes[rng.uniform(size=n) < 0.1, 2:] -= 80.0  # a few degenerate boxes (area 0)
+    scores = rng.uniform(size=n).astype(np.float32)
+    scores[rng.integers(0, n, max(n // 3, 1))] = 0.5
+    valid = rng.uniform(size=n) > 0.25
+    valid[0] = True
+    cases = [(boxes, scores, valid), (boxes, scores, np.zeros(n, bool)),
+             (np.repeat(boxes[:1], n, 0), np.full(n, 0.5, np.float32), np.ones(n, bool))]
+    for b, s, v in cases:
+        want = np.asarray(jnms.nms_mask(jnp.asarray(b), jnp.asarray(s), jnp.asarray(v),
+                                        threshold))
+        got = tnms.nms_mask(torch.from_numpy(b), torch.from_numpy(s), torch.from_numpy(v),
+                            threshold)
+        assert got.dtype == torch.bool and got.shape == (n,)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert want[0] and want.sum() == 1  # identical boxes: the first of the tie alone

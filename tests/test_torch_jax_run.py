@@ -19,7 +19,14 @@ does, and leaves ``config.json`` and flax msgpack checkpoints. Then:
   region, and STOP keeps the port's fresh init;
 - ``--detection-checkpoint`` with the JAX train state and with a
   ported-weights file written by flax loads the detector leaf for leaf as
-  ``flax_to_torch`` does, in the train CLI and in ``infer``.
+  ``flax_to_torch`` does, in the train CLI and in ``infer``;
+- the port's ``scripts/eval_checkpoint.py`` validates the directory (its
+  recorded dataset, the msgpack checkpoints, best and last) as the JAX
+  package's script does in this process: the same eval trajectories and
+  every ``FULL-TEST`` metric within ``EVAL_TOL``, the directory left as it
+  was; also on the weights as a REINFORCE run with ``--no-merge-bboxes``
+  (the starts and detector batches, which each package draws from its own
+  generator, replayed from JAX's).
 """
 
 import numpy as np
@@ -36,6 +43,7 @@ from jolineedle_tpu.env import get_actions_info
 from jolineedle_tpu.env.batched_env import NeedleEnv as JaxEnv
 from jolineedle_tpu.models.gpt import GPT as JaxGPT
 from jolineedle_tpu.train.reinforce import ReinforceTrainer as JaxReinforce
+from jolineedle_tpu.train.trainer import Trainer as JaxTrainer
 from jolineedle_tpu_torch import checkpoint as ckpt
 from jolineedle_tpu_torch import config as tconfig
 from jolineedle_tpu_torch.env.actions import get_actions_info as t_actions_info
@@ -45,6 +53,7 @@ from jolineedle_tpu_torch.models.bridge import flax_to_torch, yolox_flax_to_torc
 from jolineedle_tpu_torch.models.gpt import GPT as TorchGPT
 from jolineedle_tpu_torch.train.reinforce import ReinforceTrainer
 from jolineedle_tpu_torch.train.rollout import eval_rollout, to_numpy
+from jolineedle_tpu_torch.train.trainer import Trainer as PortTrainer
 from tests.test_torch_checkpoint import _same
 
 # The suite runs in several test processes that share the cores: one PyTorch
@@ -53,6 +62,7 @@ torch.set_num_threads(1)
 
 P, T, NV, NH, B = 64, 4, 2, 3, 2
 LOGIT_TOL = 1e-4  # tests/test_torch_serve.py
+EVAL_TOL = 1e-4
 
 
 def _cli(toy_dir, work_dir, mode, extra=()):
@@ -235,3 +245,159 @@ def test_detection_checkpoint_loads_like_flax_to_torch(jax_run, tmp_path):
     assert trainer.step == 0
     for key, value in _yolox_state(ported).items():
         torch.testing.assert_close(trainer.model.yolox.state_dict()[key], value, rtol=0, atol=0)
+
+
+def _jax_eval_checkpoint(run_dir, which, work_dir, merge_bboxes=None):
+    """What the JAX package's ``scripts/eval_checkpoint.py`` does, in this
+    process, with the trainer's work dir under ``work_dir`` in place of the
+    script's fixed one: the mean metrics it prints."""
+    import main as jax_main
+    from jolineedle_tpu.config import config_from_file
+    from jolineedle_tpu.parallel.mesh import replicate
+    from jolineedle_tpu.train.supervised import SupervisedTrainer as JaxSupervised
+
+    train_config, model_config = config_from_file(run_dir / "config.json")
+    train_ds, test_ds = jax_main.build_both_datasets(train_config, model_config,
+                                                     train_config.dataset_dir)
+    model = JaxGPT.from_config(model_config, get_actions_info(train_config))
+    cls = JaxReinforce if train_config.training_mode == "reinforce" else JaxSupervised
+    train_config.work_dir = str(work_dir)
+    train_config.env_name = run_dir.name + "_eval"
+    if merge_bboxes is not None:
+        train_config.merge_bboxes = merge_bboxes
+    trainer = cls(train_config, model, None, train_ds, test_ds)
+    name = jckpt.CKPT_BEST if which == "best" else jckpt.CKPT_LAST
+    trainer.state = replicate(trainer.mesh,
+                              jckpt.load_params_only(run_dir / name, trainer.state))
+    trainer.test_env_ids = list(range(len(test_ds)))
+    trainer.test()
+    return {k: float(np.mean(v)) for k, v in trainer.last_test_metrics.items()}
+
+
+def _recorded_rollouts(monkeypatch, trainer_class):
+    """Every eval rollout ``trainer_class``'s trainers run from now on, in order."""
+    out = []
+    rollouts = trainer_class._batched_eval_rollouts
+
+    def recorded(self, rows, sample_actions):
+        got = rollouts(self, rows, sample_actions)
+        out.extend(got)
+        return got
+
+    monkeypatch.setattr(trainer_class, "_batched_eval_rollouts", recorded)
+    return out
+
+
+def _port_eval_checkpoint(argv, capsys):
+    """The port's script on the CPU: its printed metrics, checked against
+    its return value, and its output."""
+    import json
+
+    from jolineedle_tpu_torch.scripts import eval_checkpoint
+
+    capsys.readouterr()
+    got = eval_checkpoint.main(argv, device="cpu")
+    out = capsys.readouterr().out
+    line = [l for l in out.splitlines() if l.startswith("FULL-TEST: ")][-1]
+    assert json.loads(line[len("FULL-TEST: "):]) == got
+    return got, out
+
+
+def _assert_same_trajectories(got, want):
+    """The port's eval rollouts took JAX's trajectories (positions, live
+    steps and, where recorded, actions), so the metrics compare the same
+    episodes. A failure names the smallest gap between JAX's two highest
+    logits where they are recorded: below ``10 * LOGIT_TOL`` it is a near-tie
+    that float32 rounding may flip, not a fault of the port."""
+    assert len(got) == len(want) > 0
+    for i, (t, j) in enumerate(zip(got, want)):
+        gap = "not recorded"
+        if "logits" in j:
+            top = np.sort(np.asarray(j["logits"]), axis=-1)
+            live = np.asarray(j["logit_masks"]) > 0
+            gap = (top[..., -1] - top[..., -2])[live].min(initial=np.inf)
+        keys = [k for k in ("positions", "masks", "actions", "logit_masks") if k in j]
+        assert "positions" in keys and all(k in t for k in keys), (i, keys)
+        for key in keys:
+            np.testing.assert_array_equal(np.asarray(t[key]), np.asarray(j[key]),
+                                          err_msg=f"rollout {i} {key}, smallest top-2 logit gap {gap}")
+
+
+def _assert_metrics_match_jax(got, want):
+    """Every metric of the full test within ``EVAL_TOL``: the same actions
+    and detections on both sides, the losses summed in float32 in another
+    order."""
+    assert set(got) == set(want)
+    for name, value in want.items():
+        np.testing.assert_allclose(got[name], value, rtol=EVAL_TOL, atol=EVAL_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("which", ["best", "last"])
+def test_eval_checkpoint_validates_the_jax_run(jax_run, which, tmp_path, monkeypatch, capsys):
+    run_dir = jax_run["run_dir"]
+    before = {p.name: (p.stat().st_size, p.stat().st_mtime_ns) for p in run_dir.iterdir()}
+    port_rollouts = _recorded_rollouts(monkeypatch, PortTrainer)
+    got, out = _port_eval_checkpoint([str(run_dir), "--ckpt", which], capsys)
+    name = jckpt.CKPT_BEST if which == "best" else jckpt.CKPT_LAST
+    assert f"loading {run_dir / name}" in out
+    jax_rollouts = _recorded_rollouts(monkeypatch, JaxTrainer)
+    want = _jax_eval_checkpoint(run_dir, which, tmp_path)
+    _assert_same_trajectories(port_rollouts, jax_rollouts)
+    _assert_metrics_match_jax(got, want)
+    assert {p.name: (p.stat().st_size, p.stat().st_mtime_ns) for p in run_dir.iterdir()} == before
+
+
+def test_eval_checkpoint_override_on_a_reinforce_run_matches_jax(jax_run, tmp_path, monkeypatch,
+                                                                 capsys):
+    """The run's weights as a REINFORCE run that merges boxes (its
+    config.json with ``training_mode`` reinforce and ``merge_bboxes``),
+    validated with ``--no-merge-bboxes``: the JAX script's metrics under the
+    same override. The REINFORCE eval draws its start positions and its
+    detector batches' positive patches (at most ``--max-det-patches``) from
+    each package's own generator, so the port's are replayed from JAX's."""
+    import json
+    import shutil
+
+    run_dir = tmp_path / "rl_run"
+    shutil.copytree(jax_run["run_dir"], run_dir)
+    config = json.loads((run_dir / "config.json").read_text())
+    config["train"].update(training_mode="reinforce", merge_bboxes=True)
+    (run_dir / "config.json").write_text(json.dumps(config))
+    jax_rollouts = _recorded_rollouts(monkeypatch, JaxTrainer)
+    jax_det_batches = []
+    det_batches = JaxReinforce._batched_detection_batches
+    monkeypatch.setattr(JaxReinforce, "_batched_detection_batches", lambda self, items: (
+        jax_det_batches.append(det_batches(self, items)) or jax_det_batches[-1]))
+    want = _jax_eval_checkpoint(run_dir, "best", tmp_path, merge_bboxes=False)
+
+    def replay_jax(merge):
+        starts = [np.asarray(ro["positions"])[:, 0] for ro in jax_rollouts]
+        batches = list(jax_det_batches)
+        seen = set()
+
+        def from_jax_starts(self, images, boxes, rows, generator, sample_actions):
+            positions = np.concatenate([starts.pop(0) for _ in rows])
+            return eval_rollout(self.model, torch.from_numpy(images), boxes, self.config,
+                                sample=sample_actions, generator=generator, device=self.device,
+                                positions=torch.from_numpy(positions))
+
+        def from_jax_batches(self, items):
+            out = batches.pop(0)
+            assert len(out) == len(items)
+            seen.add(self.config.merge_bboxes)
+            return out
+
+        with monkeypatch.context() as mp:
+            mp.setattr(PortTrainer, "_dispatch_eval_rollout", from_jax_starts)
+            mp.setattr(ReinforceTrainer, "_batched_detection_batches", from_jax_batches)
+            port_rollouts = _recorded_rollouts(mp, PortTrainer)
+            got, _ = _port_eval_checkpoint([str(run_dir)] + (
+                [] if merge else ["--no-merge-bboxes"]), capsys)
+        assert not starts and not batches
+        assert seen == {merge}
+        return got, port_rollouts
+
+    got, port_rollouts = replay_jax(merge=False)
+    _assert_same_trajectories(port_rollouts, jax_rollouts)
+    _assert_metrics_match_jax(got, want)
+    replay_jax(merge=True)  # without the override, the test merges as the run did

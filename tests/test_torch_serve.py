@@ -204,11 +204,14 @@ def _assert_same_rows(got, want, atol):
 def test_infer_cli_serves_a_dataset_on_cpu(served, tmp_path):
     """The CLI body on a model dir written by the port (config.json and the
     checkpoint) and a dataset list of one PNG with its targets: it prints
-    the JAX CLI's metrics, each image's rollout and detection scored."""
+    the JAX CLI's metrics, each image's rollout and detection scored. With
+    ``--output-dir`` it writes one ``result<N>.png`` per image, the
+    trajectory plot of that image's own rollout (no targets, its
+    full-image predictions)."""
     from PIL import Image
 
     from jolineedle_tpu_torch.checkpoint import save_model
-    from jolineedle_tpu_torch.infer import get_infer_args, infer
+    from jolineedle_tpu_torch.infer import get_infer_args, infer, load_bboxes
 
     t_train = served["t_train"]
     tconfig.save_config(served["t_model"], t_train)
@@ -224,6 +227,39 @@ def test_infer_cli_serves_a_dataset_on_cpu(served, tmp_path):
         {k: v[:1] for k, v in served["jro"].items()})) | {"map"}
     assert set(metrics) == want
     assert all(len(v) == 1 and np.isfinite(v[0]) for v in metrics.values())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        infer(get_infer_args(["--model-dir", model_dir, "--output-dir", str(tmp_path)]),
-              device="cpu")
+
+    from jolineedle_tpu_torch.infer import infer_image, load_model_dir
+    from jolineedle_tpu_torch.utils.geometry import parse_bbox_predictions
+    from jolineedle_tpu_torch.utils.plotting import plot_model_prediction, save_image
+
+    Image.fromarray(served["images"][1]).save(tmp_path / "img1.png")
+    out_dir = tmp_path / "plots"
+    infer(get_infer_args(["--model-dir", model_dir, "--dataset", str(tmp_path / "list.txt"),
+                          "--input-images", str(tmp_path / "img1.png"),
+                          "--output-dir", str(out_dir)]), device="cpu")
+    assert sorted(p.name for p in out_dir.iterdir()) == ["result0.png", "result1.png"]
+    train_config, _, model = load_model_dir(model_dir, device="cpu")
+    boxes = [load_bboxes(tmp_path / "img.txt"), None]
+    for i, image in enumerate(served["images"][:2]):
+        out = infer_image(model, train_config, image, boxes[i], seed=i)
+        save_image(plot_model_prediction(
+            out["image"], out["patches"], out["positions"][: out["n_valid"]], true_bboxes=[],
+            predicted_bboxes=parse_bbox_predictions([out["preds"]])), tmp_path / f"want{i}.png")
+        np.testing.assert_array_equal(np.asarray(Image.open(out_dir / f"result{i}.png")),
+                                      np.asarray(Image.open(tmp_path / f"want{i}.png")))
+
+
+def test_infer_output_dir_without_matplotlib_raises_first(served, tmp_path, monkeypatch):
+    """Without matplotlib ``--output-dir`` raises before the model loads and
+    any rollout runs."""
+    import sys
+
+    from jolineedle_tpu_torch.infer import get_infer_args, infer
+    from jolineedle_tpu_torch.ops import conv as kconv
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    kconv.reset_counts()
+    with pytest.raises(ImportError, match="infer --output-dir .* matplotlib is not installed"):
+        infer(get_infer_args(["--model-dir", str(tmp_path / "absent"), "--output-dir",
+                              str(tmp_path / "plots")]), device="cpu")
+    assert kconv.dwblock_bn_silu.calls == 0 and not (tmp_path / "plots").exists()
