@@ -122,7 +122,30 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    phase's test set) prints ``FULL-TEST`` and changes neither directory.
    ``infer --output-dir`` without matplotlib raises before any launch (with
    it, writes ``result0.png``). ``nms_mask`` on the card gives the CPU's
-   keep mask at N = 64 and 1000.
+   keep mask at N = 64 and 1000;
+13. ddp: data-parallel training (``parallel/mesh.py``) on phase 9's toy
+   dataset. (a) Two ranks sharing cuda:0 over gloo (``mesh.launch`` with
+   ``backend="gloo"``: NCCL refuses two ranks on one card), W = 2 x B = 4
+   against W = 1 x B = 8, float32 with TF32 off, accumulation 2, 4
+   iterations of each mode with the geometric augmentations and, in the
+   supervised mode, dropout: every rank's parameters, buffers, optimizer
+   state and generator bit-equal to rank 0's after every iteration (state
+   digests); every loss within rtol 1e-4, before the first update and
+   after it; the weights by the aggregate rule of
+   ``tests/test_dp_equivalence.py``; the BN statistics together within 1e-4
+   relative. (b) Each rank's kernel launches of every iteration, which
+   come back to this process, equal the W = 1 run's exactly; they make up
+   the ``ddp`` path of the ``kernels`` line. (c) The train CLI as rank 0 of
+   a group of 1 joined from torchrun's variables (NCCL), 2 iterations: its
+   losses and launches equal the run without a group. (d) bf16, W = 2 x B =
+   8 on the shared card, 3 iterations a mode: the wall ms per step (two
+   processes share one card: not a multi-card time) beside W = 1 x B = 16,
+   the gradient all-reduce's ms and bytes, the BN syncs per step. (e) With
+   two cards or more, (a)'s runs again over NCCL on cuda:0 and cuda:1, and
+   the train CLI with ``--devices 0 1`` trains REINFORCE 2 iterations with
+   a test on rank 0 (the ranks' state check and the barrier over NCCL):
+   both ranks report equal losses and the digest they agreed on; with one
+   card, a line says (e) was not run.
 
 Phase 3 also holds the flash-attention kernel against its plain versions
 (output, log-sum-exp and gradients) at the decoder's shape [16, 3, 21, 16]
@@ -156,6 +179,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -644,7 +668,8 @@ def kernels_json(rows, new_rows, wide_rows, launches, by_path):
     supervised eval's and the full-prefix rollout's N, and flash's rows at
     the full-prefix shapes are in ``shapes``, outside the totals.
     ``launches``
-    sums every path's count; ``launches_by_path`` splits it. The wide
+    sums every path's count, the data-parallel ranks' (``ddp``) included;
+    ``launches_by_path`` splits it. The wide
     variant's rows go under conv3x3_bn_silu's ``wide_variant_shapes``,
     outside its totals."""
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -2101,6 +2126,180 @@ def eval_phase(port, seed, model_dir, sup_run):
     return launches
 
 
+# --- phase 13: data-parallel training ------------------------------------------------------
+# Two ranks of DDP_B rows against one of 2 DDP_B, DDP_ITERS iterations of each
+# mode (accumulation TRAIN_ACCUM: updates after 2 and 4), float32; then the
+# bf16 timing at 2 x DDP_TIME_B, DDP_TIME_ITERS iterations a mode.
+DDP_B, DDP_ITERS, DDP_TIME_B, DDP_TIME_ITERS, DDP_NCCL_ITERS = 4, 4, 8, 3, 2
+
+
+def counted() -> str:
+    """The wrappers' counter the phase reads: their launches on the card,
+    their calls in a rehearsal on the CPU (where nothing launches)."""
+    return "launches" if DEVICE == "cuda" else "calls"
+
+
+def ddp_flags(toy, work_dir, seed, mode, batch, dtype="float32", augment=True):
+    """The flagship train flags in ``mode`` at ``batch`` rows a rank, with
+    no test; the geometric augmentations on when ``augment``."""
+    flags = train_flags(toy, work_dir, seed)
+    for flag, value in (("--training-mode", mode), ("--batch-size", batch),
+                        ("--compute-dtype", dtype), ("--env-name", f"ddp_{mode}"),
+                        ("--num-workers", 2)):
+        flags[flags.index(flag) + 1] = str(value)
+    if mode == "supervised":
+        flags[flags.index("--dropout") + 1] = "0.1"
+    return flags + (["--augment-rotate", "--augment-translate"] if augment else [])
+
+
+def ddp_compare(what, one, ranks_out, ranks_mod):
+    """A W = 2 run's ranks against the W = 1 run at the global batch by
+    ``parallel/ranks.compare_runs`` (every rank's state bit-equal to rank
+    0's after every iteration; losses; weights; BN statistics; the kernel
+    launches of every iteration exactly W = 1's). Returns its numbers."""
+    misses, numbers = ranks_mod.compare_runs(one, ranks_out, TRAIN_ACCUM, lambda name: 1e-4)
+    require(not misses, f"{what}: {misses[:5]}")
+    return numbers["loss_before"], numbers["loss_after"], numbers["stats"]
+
+
+def ddp_cli_check(port, toy, root, seed):
+    """(e)'s train CLI with ``--devices 0 1``: one rank on each card
+    (``mesh.rank_devices``), REINFORCE for DDP_NCCL_ITERS iterations with a
+    test on rank 0 after the last, behind the state check (``check_agree``)
+    and the barrier, then the final test. Both ranks report the digest they
+    agreed on and equal losses; rank 0 wrote the checkpoint."""
+    flags = ddp_flags(toy, root / "cli", seed, "reinforce", DDP_B)
+    at = flags.index("--devices")
+    flags[at + 1:at + 2] = ["0", "1"]
+    for flag, value in (("--max-iters", DDP_NCCL_ITERS), ("--test-every", DDP_NCCL_ITERS)):
+        flags[flags.index(flag) + 1] = str(value)
+    summaries = port.train_main(port.tconfig.get_args(flags))
+    devices = ["cuda:0", "cuda:1"] if DEVICE == "cuda" else [DEVICE, DEVICE]
+    require([(s["rank"], s["device"]) for s in summaries] == list(enumerate(devices)),
+            f"ddp nccl cli: ranks {[(s['rank'], s['device']) for s in summaries]}")
+    a, b = summaries
+    require(a["digest"] is not None and a["digest"] == b["digest"] and a["losses"] == b["losses"]
+            and len(a["losses"]) == DDP_NCCL_ITERS and all(math.isfinite(x) for x in a["losses"]),
+            f"ddp nccl cli: the ranks' summaries {summaries}")
+    require((root / "cli" / "ddp_reinforce" / "checkpoint.pt").is_file(),
+            "ddp nccl cli: rank 0 wrote no checkpoint")
+    say(f"ddp nccl cli: --devices 0 1 trained on {devices} over NCCL, tested on rank 0 behind"
+        f" the state check and the barrier: losses {a['losses']} on both ranks, digests equal")
+
+
+def ddp_phase(port, seed, toy):
+    """Data-parallel training (``parallel/mesh.py``): (a) two ranks sharing
+    the card over gloo against one rank at the global batch, each mode; (b)
+    their kernel launches per iteration; (c) the train CLI as the one rank
+    of an NCCL group from torchrun's variables against the same run without
+    a group; (d) bf16 step times at W = 2 on the shared card; (e) NCCL
+    across two cards when there are two, and the train CLI over them. Returns the launches of the
+    ranks' runs and of (c)'s grouped run."""
+    from jolineedle_tpu_torch.parallel import mesh, ranks as ranks_mod
+
+    start = time.perf_counter()
+    root = toy.parent / "ddp"
+    shutil.rmtree(root, ignore_errors=True)
+    modes = ("supervised", "reinforce")
+    jobs = lambda batch, **kw: [dict(flags=ddp_flags(toy, root, seed, m, batch, **kw), **(
+        {"iters": DDP_TIME_ITERS, "time": True} if kw else {"iters": DDP_ITERS}), tf32=False)
+        for m in modes]
+    bf16 = dict(dtype="bfloat16", augment=False)
+    card = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device(DEVICE)
+
+    # (a), (b), (d): the two ranks run every job in one launch
+    one = ranks_mod.train_rank_steps(mesh.single(card), jobs(2 * DDP_B))
+    one_timed = ranks_mod.train_rank_steps(mesh.single(card), jobs(2 * DDP_TIME_B, **bf16))
+    launch_start = time.perf_counter()
+    two = mesh.launch(ranks_mod.train_rank_steps, (jobs(DDP_B) + jobs(DDP_TIME_B, **bf16),),
+                      [card, card], backend="gloo")
+    say(f"ddp: two ranks on cuda:0 over gloo ran {len(modes)} x 2 jobs in"
+        f" {time.perf_counter() - launch_start:.1f} s (process start and kernel loads included)")
+    launches = Counter()
+    for rank in two:
+        for job in rank:
+            for counts in job[counted()]:
+                launches.update(counts)
+    for i, mode in enumerate(modes):
+        before, after, stat_rel = ddp_compare(f"ddp {mode}", one[i], [r[i] for r in two],
+                                              ranks_mod)
+        per_it = one[i][counted()]
+        say(f"ddp {mode}: W=2 x B={DDP_B} (gloo, one card) against W=1 x B={2 * DDP_B}, float32,"
+            f" {DDP_ITERS} iterations: losses {[round(x, 6) for x in two[0][i]['losses']]}"
+            f" against {[round(x, 6) for x in one[i]['losses']]} (largest relative difference"
+            f" {before:.2e} before the first update, {after:.2e} after), BN statistics"
+            f" {stat_rel:.2e} apart, every rank's state bit-equal to rank 0's after each"
+            f" iteration; launches per iteration and rank {per_it[0]}, exactly W=1's")
+        require(all(c["flash_attention"] == N_LAYER for c in per_it),
+                f"ddp {mode}: flash launches {per_it}")
+        require(mode == "supervised" or all(c["dwblock_bn_silu"] > 0 for c in per_it),
+                f"ddp {mode}: conv launches {per_it}")
+    for i, mode in enumerate(modes):
+        t = [r[len(modes) + i] for r in two]
+        require(t[0]["digests"] == t[1]["digests"], f"ddp {mode} bf16: the ranks disagree")
+        step_ms = statistics.median(t[0]["step_ms"] + t[1]["step_ms"])
+        one_ms = statistics.median(one_timed[i]["step_ms"])
+        bn = statistics.median(c.get("bn", 0) for c in t[0]["collectives"])
+        say(f"ddp {mode} bf16: W=2 x B={DDP_TIME_B} on ONE card shared by both ranks (not a"
+            f" multi-card time) {step_ms:.2f} ms wall per step, against W=1 x B={2 * DDP_TIME_B}"
+            f" {one_ms:.2f} ms; gradient all-reduce (gloo, through the host) {t[0]['sync_ms']:.2f}"
+            f" ms for {t[0]['sync_bytes']:,} bytes; {bn:.0f} BN syncs per step; losses"
+            f" {[round(x, 4) for x in t[0]['losses']]}")
+
+    # (c): the CLI as the one rank of an NCCL group, against no group
+    flags = ddp_flags(toy, root / "nccl", seed, "reinforce", DDP_B, dtype="bfloat16",
+                      augment=False)
+    flags[flags.index("--max-iters") + 1] = str(DDP_NCCL_ITERS)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        free_port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port)}
+    reset_launches(port)
+    os.environ.update(env)
+    try:
+        grouped = port.train_main(port.tconfig.get_args(flags))
+    finally:
+        for key in env:
+            del os.environ[key]
+    grouped_counts = read_launches(port)
+    require(grouped.world.backend == mesh.default_backend(card) and grouped.world.grouped
+            and not torch.distributed.is_initialized(),
+            f"ddp nccl: the run's world {grouped.world}")
+    reset_launches(port)
+    alone = port.train_main(port.tconfig.get_args(flags))
+    alone_counts = read_launches(port)
+    a = [float(v) for v in grouped.loss_history]
+    b = [float(v) for v in alone.loss_history]
+    require(len(a) == DDP_NCCL_ITERS and a == b,
+            f"ddp nccl: losses {a} as one rank of an NCCL group, {b} without a group")
+    require(grouped_counts == alone_counts, f"ddp nccl: launches {grouped_counts} / {alone_counts}")
+    launches.update(grouped_counts)
+    say(f"ddp nccl: the train CLI as rank 0 of 1 under torchrun's variables (NCCL): losses {a},"
+        f" equal to the run without a group; launches {grouped_counts} as there")
+    del grouped, alone
+
+    # (e): NCCL across two cards
+    if torch.cuda.device_count() >= 2:
+        nccl = mesh.launch(ranks_mod.train_rank_steps, (jobs(DDP_B),),
+                           [card, torch.device("cuda", 1)])
+        for i, mode in enumerate(modes):
+            before, after, stat_rel = ddp_compare(f"ddp nccl {mode}", one[i],
+                                                  [r[i] for r in nccl], ranks_mod)
+            say(f"ddp nccl {mode}: W=2 x B={DDP_B} on cuda:0 and cuda:1 against W=1: largest"
+                f" relative loss difference {before:.2e} / {after:.2e}, BN statistics"
+                f" {stat_rel:.2e}; states bit-equal across ranks")
+        for rank in nccl:
+            for job in rank:
+                for counts in job[counted()]:
+                    launches.update(counts)
+        ddp_cli_check(port, toy, root, seed)
+    else:
+        say("ddp: one card visible, so NCCL across two cards (13e) was not run")
+    say(f"ddp: the phase took {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def import_port():
     """The port's modules this script drives. In a directory that holds
     this script and nothing else of the repo, this raises ImportError."""
@@ -2187,7 +2386,7 @@ def main(argv=None) -> int:
     supervised_reference(models, state, args.seed)
     del models, model
 
-    # 5-12. the paths, each read on its own, and the device pool
+    # 5-13. the paths, each read on its own, and the device pool
     toy = toy_dataset(port, args.seed)
     by_path = {"serve": serve_phase(port, model_dir, args.seed),
                "jax_files": jax_files_phase(port, model_dir, args.seed),
@@ -2200,6 +2399,8 @@ def main(argv=None) -> int:
     by_path["supervised"], sup_run = sup_train_phase(port, args.seed, toy, args.device_data_cache)
     torch.cuda.empty_cache()
     by_path["eval"] = eval_phase(port, args.seed, model_dir, sup_run)
+    torch.cuda.empty_cache()
+    by_path["ddp"] = ddp_phase(port, args.seed, toy)
     launches = sum(by_path.values(), Counter())
     for name in KERNEL_NAMES:
         require(launches[name] > 0, f"{name} was launched no time on its path")

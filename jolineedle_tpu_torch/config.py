@@ -169,10 +169,12 @@ def get_args(args=None) -> argparse.Namespace:
         "--devices",
         nargs="+",
         type=int,
-        help="Device indices; on TPU the data mesh spans these devices",
+        help="CUDA device indices; more than one trains data-parallel, one rank per"
+        " device (under torchrun: this host's devices, one per local rank)",
     )
     parser.add_argument("--port-ddp", type=int, default=12355,
-                        help="Kept for CLI parity; unused on TPU (GSPMD)")
+                        help="Kept for CLI parity; the ranks meet at a file:// rendezvous"
+                        " (or torchrun's MASTER_PORT)")
     parser.add_argument("--lr", type=float, default=1e-4)
     parser.add_argument("--max-iters", type=int, default=1000)
     parser.add_argument("--batch-size", type=int, default=8)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..parallel.mesh import draw
 from .actions import ACTION_DELTAS_ARRAY, Action
 from .parsing import split_boxes_to_patches
 
@@ -117,8 +118,10 @@ class NeedleEnv:
                 raise ValueError("reset needs positions or a generator")
             kw = dict(generator=generator, device=generator.device)
             positions = torch.stack([
-                torch.randint(0, self.n_vertical_patches, (self.batch_size,), **kw),
-                torch.randint(0, self.n_horizontal_patches, (self.batch_size,), **kw),
+                draw(lambda s: torch.randint(0, self.n_vertical_patches, s, **kw),
+                     (self.batch_size,)),
+                draw(lambda s: torch.randint(0, self.n_horizontal_patches, s, **kw),
+                     (self.batch_size,)),
             ], dim=1)
         positions = torch.as_tensor(positions).long().to(self.device)
         state = EnvState(
@@ -228,7 +231,8 @@ class NeedleEnv:
         """
         nv, nh = self.n_vertical_patches, self.n_horizontal_patches
         flat_pos = self.bbox_masks.reshape(self.batch_size, nv * nh)
-        noise = torch.rand(flat_pos.shape, generator=generator, device=self.device)
+        noise = draw(lambda s: torch.rand(s, generator=generator, device=self.device),
+                     flat_pos.shape)
         # Negatives ranked among themselves (positives pushed to +inf).
         inf = torch.full_like(noise, float("inf"))
         neg_rank = torch.argsort(

@@ -4,8 +4,21 @@ The counterpart of ``main.py`` with the same flags (``config.py`` is the same
 parser), the same ``config.json`` and the same work-dir layout: datasets from
 ``--dataset-dir``, the model from the config, a logger, the trainer of
 ``--training-mode``, then ``--init-from`` / ``--resume-training`` and
-``trainer.run()``. It runs on one CUDA device, or on ``device="cpu"`` when a
-caller asks (the tests do).
+``trainer.run()``. It runs on the CUDA devices of ``--devices``, or on
+``device="cpu"`` when a caller asks (the tests do).
+
+``--devices`` with more than one index trains data-parallel, one process per
+device (``parallel/mesh.py``): rank r on ``cuda:<r-th index>``, joined by
+NCCL (gloo on the CPU), a global batch of ``--batch-size × W`` rows, what the
+JAX package computes on a mesh over those devices. The CLI process writes
+``config.json``, spawns the ranks and returns their ``Trainer.summary()``s;
+rank 0 alone prints, tests and writes the run directory. Under torchrun (its
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``;
+several hosts) each process is one rank, the ``l``-th local rank on the
+``l``-th index of ``--devices``, and ``main`` returns its trainer. A repeated
+index is refused. ``chip_smoke.py`` runs ``--devices 0 1`` over NCCL when
+it sees two cards; more than two ranks over NCCL, and torchrun across
+hosts, have not yet run on any card.
 
 Both training modes are ported: ``supervised`` (the default,
 ``train/supervised.py``) and ``reinforce`` (``train/reinforce.py``).
@@ -24,15 +37,18 @@ checkpoints to load), prints the FLOP and parameter report of
 ``utils/flops.py`` (counted on a ``meta`` copy of the model: no kernel runs)
 and returns without training.
 
+``--measure-flops`` runs once, on the first device, before any rank is
+spawned.
+
 Not ported yet, and refused with "not yet ported": ``--steps-per-dispatch``
-above 1 (a TPU dispatch workaround) and more than one device in
-``--devices``.
+above 1 (a TPU dispatch workaround).
 """
 
 from __future__ import annotations
 
 import os
 import random
+import sys
 
 import numpy as np
 import torch
@@ -43,6 +59,7 @@ from .data.dataset import build_datasets
 from .env.actions import get_actions_info
 from .models.gpt import GPT
 from .observe.logger import Logger
+from .parallel import mesh
 
 
 def build_both_datasets(train_config, model_config, dataset_dir):
@@ -65,34 +82,34 @@ def build_both_datasets(train_config, model_config, dataset_dir):
 
 
 def _refuse_unported(train_config) -> None:
-    refused = {
-        "--steps-per-dispatch > 1": int(getattr(train_config, "steps_per_dispatch", 1)) > 1,
-        "more than one device in --devices": len(train_config.gpu_ids) > 1,
-    }
-    for flag, asked in refused.items():
-        if asked:
-            raise NotImplementedError(f"{flag} is not yet ported to jolineedle_tpu_torch")
+    if int(getattr(train_config, "steps_per_dispatch", 1)) > 1:
+        raise NotImplementedError(
+            "--steps-per-dispatch > 1 is not yet ported to jolineedle_tpu_torch")
+    if len(set(train_config.gpu_ids)) != len(train_config.gpu_ids):
+        raise ValueError(f"--devices {list(train_config.gpu_ids)} repeats an index:"
+                         " one rank runs on each device")
     if train_config.training_mode not in ("supervised", "reinforce"):
         raise ValueError(f"Unknown training mode: {train_config.training_mode}")
 
 
-def launch_training(train_config, model_config, dataset_dir, device=None):
-    """Build the datasets, model, logger and trainer, restore what the flags
-    ask for, and train (or, with ``--measure-flops``, print the FLOP report
-    instead). Returns the trainer."""
-    _refuse_unported(train_config)
-    device = resolve_device(device)
+def build_trainer(world, train_config, model_config, dataset_dir, log=True):
+    """The trainer of the flags on the rank ``world``: the datasets, the
+    model from the seed, a logger on rank 0 (when ``log``), the trainer of
+    ``--training-mode``, what ``--init-from``, ``--resume-training`` and
+    ``--detection-checkpoint`` ask for, then rank 0's weights and statistics
+    on every rank."""
     train_dataset, test_dataset = build_both_datasets(train_config, model_config, dataset_dir)
     torch.manual_seed(train_config.seed)
-    model = GPT.from_config(model_config, get_actions_info(train_config), device=device)
-    logger = Logger(train_config, model_config)
+    model = GPT.from_config(model_config, get_actions_info(train_config), device=world.device)
+    logger = Logger(train_config, model_config) if log and world.is_main else None
 
     if train_config.training_mode == "supervised":
         from .train.supervised import SupervisedTrainer as TrainerClass
     else:
         from .train.reinforce import ReinforceTrainer as TrainerClass
 
-    trainer = TrainerClass(train_config, model, logger, train_dataset, test_dataset, device)
+    trainer = TrainerClass(train_config, model, logger, train_dataset, test_dataset,
+                           world.device, world=world)
 
     if train_config.init_from is not None:
         if train_config.resume_training is not None:
@@ -106,7 +123,7 @@ def launch_training(train_config, model_config, dataset_dir, device=None):
         print("Resuming from", train_config.resume_training)
         trainer.load_checkpoint(train_config.resume_training)
         visdom_pkl = os.path.join(train_config.resume_training, "visdom.pkl")
-        if os.path.isfile(visdom_pkl):
+        if logger is not None and os.path.isfile(visdom_pkl):
             from .observe.visualizer import VisdomPlotter
 
             logger.visdom = VisdomPlotter.load(visdom_pkl, env_name=train_config.env_name)
@@ -115,33 +132,69 @@ def launch_training(train_config, model_config, dataset_dir, device=None):
         print("Load detection checkpoint from", train_config.detection_checkpoint)
         trainer.load_detection_checkpoint(train_config.detection_checkpoint)
 
+    mesh.broadcast_tensors(model.state_dict().values(), world)
+    return trainer
+
+
+def launch_training(train_config, model_config, dataset_dir, device=None, world=None):
+    """Build the trainer (:func:`build_trainer`) and train, or, with
+    ``--measure-flops``, print the FLOP report instead. Runs as the rank
+    ``world`` (default: alone on ``device``). Returns the trainer."""
+    _refuse_unported(train_config)
+    world = mesh.single(resolve_device(device)) if world is None else world
+    trainer = build_trainer(world, train_config, model_config, dataset_dir)
+
     if train_config.measure_flops:
         from .utils.flops import measure_flops
 
-        trainer.flops_report = measure_flops(trainer, model_config, train_config)
+        if world.is_main:
+            trainer.flops_report = measure_flops(trainer, model_config, train_config)
         return trainer
 
     trainer.run()
     return trainer
 
 
+def train_rank(world, train_config, model_config, dataset_dir) -> dict:
+    """One rank of a data-parallel run (what :func:`main` spawns): train,
+    and report the trainer's summary and the top-level packages this
+    process imported."""
+    mesh.quiet_unless_main(world)
+    trainer = launch_training(train_config, model_config, dataset_dir, world=world)
+    summary = trainer.summary()
+    summary["packages"] = sorted({name.split(".")[0] for name in sys.modules})
+    return summary
+
+
 def main(args, device=None):
-    """The CLI body on parsed ``args``; runs on ``device`` (default: the
-    GPU). Returns the trainer."""
+    """The CLI body on parsed ``args``; runs on the GPUs of ``--devices``
+    unless ``device`` is the CPU. Returns the trainer; with more than one
+    device, the ranks' summaries (:func:`train_rank`)."""
     train_config, model_config = args_to_config(args)
     _refuse_unported(train_config)
-    device = resolve_device(device)
     random.seed(train_config.seed)
     np.random.seed(train_config.seed)
     if args.group != "":
         train_config.env_name = f"{args.group}_{train_config.env_name}"
-    print(
-        f"training env_name = {train_config.env_name}",
-        f"\nUsing positional encoding = {model_config.use_pos_emb}",
-        f"\nConcatenating embeddings = {model_config.concat_emb}",
-    )
-    save_config(model_config, train_config)
-    return launch_training(train_config, model_config, args.dataset_dir, device)
+    world = mesh.join_from_env(train_config.gpu_ids, device)
+    devices = [world.device] if world is not None else mesh.rank_devices(train_config.gpu_ids,
+                                                                         device)
+    if world is None or world.is_main:
+        print(
+            f"training env_name = {train_config.env_name}",
+            f"\nUsing positional encoding = {model_config.use_pos_emb}",
+            f"\nConcatenating embeddings = {model_config.concat_emb}",
+        )
+        save_config(model_config, train_config)
+    if world is not None:
+        mesh.quiet_unless_main(world)
+        try:
+            return launch_training(train_config, model_config, args.dataset_dir, world=world)
+        finally:
+            mesh.close_world(world)
+    if len(devices) == 1 or train_config.measure_flops:
+        return launch_training(train_config, model_config, args.dataset_dir, devices[0])
+    return mesh.launch(train_rank, (train_config, model_config, str(args.dataset_dir)), devices)
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.attention import NEG_INF, causal_attention
+from ..parallel.mesh import draw
 from .init import init_like_flax
 from .positional import positional_encoding_1d, positional_encoding_2d
 from .yolox import YOLOPAFPN, YOLOX_VARIANTS, NeedleYOLOX
@@ -282,7 +283,8 @@ class GPT(nn.Module):
         keep = 1.0 - self.dropout
 
         def drop(x):
-            mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+            mask = draw(lambda s: torch.rand(s, generator=generator, device=x.device),
+                        x.shape) < keep
             return torch.where(mask, x / keep, torch.zeros_like(x))
 
         return drop

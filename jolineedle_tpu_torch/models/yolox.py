@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.conv import conv3x3_bn_silu, dwblock_bn_silu, fold_bn
+from ..parallel.mesh import active_size, global_sum
 
 # (depth, width, depthwise) per variant (jolineedle_tpu/models/yolox.py:24-32).
 YOLOX_VARIANTS = {
@@ -84,10 +85,18 @@ def batch_norm_train(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
     float32: normalise by the batch mean and biased variance (E[y^2] -
     E[y]^2, clipped at 0, flax's fast variance) and update the running
     statistics in place, ``r = (1 - m) r + m * stat`` with torch's momentum
-    ``m = 1 - 0.97`` and the biased variance (``yolox.py:59-64``)."""
+    ``m = 1 - 0.97`` and the biased variance (``yolox.py:59-64``).
+
+    The statistics come from the per-channel sums of ``y`` and ``y^2``:
+    inside ``parallel.mesh.data_parallel`` those are summed over the ranks
+    (differentiably) and the count is the global batch's, as the JAX step's
+    statistics span its mesh."""
     yf = y.float()
-    mean = yf.mean(dim=(0, 2, 3))
-    var = ((yf * yf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    c = yf.shape[1]
+    sums = global_sum(torch.cat([yf.sum(dim=(0, 2, 3)), (yf * yf).sum(dim=(0, 2, 3))]))
+    count = yf.numel() // c * active_size()
+    mean = sums[:c] / count
+    var = (sums[c:] / count - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         bn.running_mean.mul_(1.0 - bn.momentum).add_(mean.detach(), alpha=bn.momentum)
         bn.running_var.mul_(1.0 - bn.momentum).add_(var.detach(), alpha=bn.momentum)

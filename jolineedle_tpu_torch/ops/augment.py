@@ -8,7 +8,8 @@ and a 3 px motion blur along a random compass axis (p 0.3), then a clip to
 numbers come from an explicit ``torch.Generator`` on the images' device, so
 they differ from the JAX keys' (a distribution match, as the JAX module's own
 is to kornia's). Every draw is a batched tensor op with fixed shapes: no
-host synchronisation.
+host synchronisation. Inside ``parallel.mesh.data_parallel`` each is drawn
+for the global batch and cut to the rank's images (``mesh.draw``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import draw
+
 _PLANCKIAN_GAINS = np.array(
     [[1.0 + 0.4 * (1 - t), 1.0, 1.0 + 0.6 * (t - 0.5)] for t in np.linspace(0.0, 1.0, 24)],
     np.float32,
@@ -24,7 +27,11 @@ _PLANCKIAN_GAINS = np.array(
 
 
 def _uniform(gen, n, device, low=0.0, high=1.0):
-    return low + (high - low) * torch.rand(n, generator=gen, device=device)
+    return low + (high - low) * _rand(gen, (n,), device)
+
+
+def _rand(gen, shape, device):
+    return draw(lambda s: torch.rand(s, generator=gen, device=device), shape)
 
 
 def _where(flag, a, b):
@@ -54,7 +61,8 @@ def detection_augment(generator: torch.Generator, images: torch.Tensor) -> torch
     n, dev, gen = img.shape[0], img.device, generator
 
     gains = torch.from_numpy(_PLANCKIAN_GAINS).to(dev)
-    pick = torch.randint(0, len(_PLANCKIAN_GAINS), (n,), generator=gen, device=dev)
+    pick = draw(lambda s: torch.randint(0, len(_PLANCKIAN_GAINS), s, generator=gen, device=dev),
+                (n,))
     img = (img * gains[pick][:, :, None, None]).clamp(0.0, 1.0)
 
     gray = (0.299 * img[:, 0] + 0.587 * img[:, 1] + 0.114 * img[:, 2])[:, None].expand_as(img)
@@ -64,14 +72,14 @@ def detection_augment(generator: torch.Generator, images: torch.Tensor) -> torch
     x = torch.tensor([-1.0, 0.0, 1.0], device=dev)
     img = _separable_blur_3(img, torch.exp(-(x[None] ** 2) / (2 * sigma[:, None] ** 2)))
 
-    coarse = torch.rand((n, 1, 4, 4), generator=gen, device=dev)
+    coarse = _rand(gen, (n, 1, 4, 4), dev)
     field = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
     intensity = _uniform(gen, n, dev, -0.2, 0.0)[:, None, None, None]
     quantity = _uniform(gen, n, dev, 0.0, 0.4)[:, None, None, None]
     shadow = 1.0 + intensity * (field < quantity).float()
     img = _where(_uniform(gen, n, dev) < 0.5, (img * shadow).clamp(0.0, 1.0), img)
 
-    noise = torch.randn(img.shape, generator=gen, device=dev)
+    noise = draw(lambda s: torch.randn(s, generator=gen, device=dev), img.shape)
     img = _where(_uniform(gen, n, dev) < 0.5, img + 0.05 * noise, img)
 
     pad = F.pad(img, (1, 1, 1, 1), mode="replicate")
@@ -85,7 +93,7 @@ def detection_augment(generator: torch.Generator, images: torch.Tensor) -> torch
         (shifted(-1, -1) + img + shifted(1, 1)) / 3,  # diagonal
         (shifted(-1, 1) + img + shifted(1, -1)) / 3,  # anti-diagonal
     ], dim=1)  # [N, 4, C, H, W]
-    direction = torch.randint(0, 4, (n,), generator=gen, device=dev)
+    direction = draw(lambda s: torch.randint(0, 4, s, generator=gen, device=dev), (n,))
     blurred = candidates[torch.arange(n, device=dev), direction]
     img = _where(_uniform(gen, n, dev) < 0.3, blurred, img)
 

@@ -22,6 +22,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import global_count
+
 CENTER_RADIUS = 2.5
 HIGH_COST = 100000.0
 TOPK_CANDIDATES = 10
@@ -138,7 +140,8 @@ def yolox_losses(
     ``iou_loss``, ``l1_loss``, ``conf_loss``, ``cls_loss``, ``num_fg``.
     Rows whose obj column is not 1 are padding; ``patch_valid`` masks padded
     patches. ``with_assignment`` adds ``fg_mask``, ``matched_gt`` and
-    ``matched_iou``."""
+    ``matched_iou``. Inside ``parallel.mesh.data_parallel`` ``num_fg``, the
+    denominator of every loss, is the global batch's."""
     boxes = head_out["boxes"]
     obj_logits = head_out["obj_logits"]
     cls_logits = head_out["cls_logits"]
@@ -158,7 +161,8 @@ def yolox_losses(
     )
     fg_mask = fg_mask & patch_valid[:, None]
     fg = fg_mask.float()
-    num_fg = fg.sum().clamp_min(1.0)
+    # Global over the ranks inside parallel.mesh.data_parallel (simota.py:198).
+    num_fg = global_count(fg.sum()).clamp_min(1.0)
 
     matched_boxes = torch.gather(gt_cxcywh, 1, matched_gt[..., None].expand(-1, -1, 4))
     matched_cls = torch.gather(gt_cls, 1, matched_gt)  # [B, A]

@@ -155,11 +155,14 @@ class Prefetcher:
     and numpy slicing release the GIL) — the reference's DataLoader worker
     count (reference: main.py ``--num-workers``). When ``pick_work`` is
     given, it is called under an internal lock to draw the next work item
-    (e.g. sample indices) and ``make_batch(work)`` runs in parallel; without
-    it, ``make_batch()`` itself must be thread-safe for num_workers > 1.
-    Batch order is non-deterministic across workers, which is fine for
-    shuffled training. An exception in ``make_batch`` or ``pick_work`` is
-    raised by the ``next()`` that would have returned that batch.
+    (e.g. sample indices) and ``make_batch(work)`` runs in parallel; the
+    batches come out in the order their work was picked (one built early
+    waits for those before it), so every rank of a data-parallel run takes
+    the same global batch at the same iteration. Without it,
+    ``make_batch()`` itself must be thread-safe for num_workers > 1 and the
+    batches come out as they are built. An exception in ``make_batch`` is
+    raised by the ``next()`` that would have returned that batch, one in
+    ``pick_work`` by the next ``next()``.
     """
 
     def __init__(
@@ -178,6 +181,10 @@ class Prefetcher:
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._active = num_workers
+        self._picked = 0  # work items picked so far: the next one's number
+        self._next = 0  # the number of the batch next() returns next
+        self._early = {}  # batches built before their turn, by number
+        self._drained = False  # the end-of-stream sentinel has come
         self._threads = [
             threading.Thread(target=self._worker, daemon=True)
             for _ in range(num_workers)
@@ -187,10 +194,13 @@ class Prefetcher:
 
     def _worker(self):
         while not self._stop.is_set():
+            number = None
             try:
                 if self._pick_work is not None:
                     with self._lock:
                         work = self._pick_work()
+                        number = self._picked
+                        self._picked += 1
                     batch = self._make_batch(work)
                 else:
                     batch = self._make_batch()
@@ -209,7 +219,7 @@ class Prefetcher:
                 batch = exc
             while not self._stop.is_set():
                 try:
-                    self._queue.put(batch, timeout=0.5)
+                    self._queue.put((number, batch), timeout=0.5)
                     break
                 except queue.Full:
                     continue
@@ -220,12 +230,27 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        item = self._queue.get()
-        if item is None:
-            raise StopIteration
-        if isinstance(item, Exception):
-            raise item
-        return item
+        while self._next not in self._early:
+            if self._drained:  # every worker has stopped: the rest in order
+                if not self._early:
+                    raise StopIteration
+                self._next = min(self._early)
+                break
+            item = self._queue.get()
+            if item is None:
+                self._drained = True
+                continue
+            number, batch = item
+            if number is None:
+                if isinstance(batch, Exception):
+                    raise batch
+                return batch
+            self._early[number] = batch
+        batch = self._early.pop(self._next)
+        self._next += 1
+        if isinstance(batch, Exception):
+            raise batch
+        return batch
 
     def close(self):
         self._stop.set()

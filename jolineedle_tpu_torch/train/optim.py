@@ -68,6 +68,12 @@ class Optimizer:
     Call :meth:`step` once after every ``loss.backward()``; it returns True
     when it applied an update. Frozen parameters keep their values and their
     gradients are dropped.
+
+    Over several ranks, a train step sums each iteration's fresh gradients
+    over the ranks before they join the ones accumulated here
+    (``parallel.mesh.data_parallel``): the accumulated gradient, its
+    checkpoint and the clip at the update are the global batch's, on every
+    rank.
     """
 
     def __init__(
@@ -101,7 +107,8 @@ class Optimizer:
         self.mini_step = 0  # backward passes accumulated since the last update
         self.updates = 0  # updates applied (optax's inner count)
 
-    def _trained(self):
+    def trained_params(self):
+        """The parameters of the trained groups, in the groups' order."""
         for group in self.adamw.param_groups:
             yield from group["params"]
 
@@ -110,7 +117,7 @@ class Optimizer:
         self.mini_step += 1
         if self.mini_step < self.every_k:
             return False
-        for p in self._trained():
+        for p in self.trained_params():
             if p.grad is None:  # optax still decays a parameter with no gradient
                 p.grad = torch.zeros_like(p)
             if self.every_k > 1:
@@ -138,12 +145,12 @@ class Optimizer:
             "mini_step": self.mini_step,
             "updates": self.updates,
             "acc_grads": [None if p.grad is None else p.grad.detach().cpu()
-                          for p in self._trained()],
+                          for p in self.trained_params()],
         }
 
     def load_state_dict(self, state: dict) -> None:
         self.adamw.load_state_dict(state["adamw"])
         self.mini_step = int(state["mini_step"])
         self.updates = int(state["updates"])
-        for p, g in zip(self._trained(), state["acc_grads"]):
+        for p, g in zip(self.trained_params(), state["acc_grads"]):
             p.grad = None if g is None else g.to(p.device, p.dtype)

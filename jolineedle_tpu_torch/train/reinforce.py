@@ -40,9 +40,9 @@ from ..env.oracle import gather_patches
 from ..ops.augment import detection_augment
 from ..ops.nms import postprocess, sigmoid_np
 from ..ops.simota import yolox_losses
+from ..parallel.mesh import data_parallel, global_count, reduce_metrics
 from ..utils.geometry import BBox, Position, merge_boxes_batched, parse_bbox_predictions
 from ..utils.metrics import compute_detection_metrics, patch_bboxes2full_image
-from .batching import Prefetcher
 from .rollout import compute_rollout_metrics, rollout
 from .trainer import Trainer
 
@@ -87,7 +87,9 @@ def reinforce_loss(
     The log-probabilities and entropies of the taken actions come from one
     teacher-forced forward in eval mode over the patches at the rollout's
     positions; ``ro["returns"]`` and ``ro["logit_masks"]`` are data.
-    Returns (loss, metrics) as ``reinforce.py:168-187`` computes them."""
+    Returns (loss, metrics) as ``reinforce.py:168-187`` computes them.
+    Inside ``parallel.mesh.data_parallel`` the mask sum that divides both
+    terms is the global batch's: the loss is this rank's share."""
     actions = ro["actions"]
     B, T = actions.shape
     positions = ro["positions"][:, :T]
@@ -102,7 +104,7 @@ def reinforce_loss(
     masks = ro["logit_masks"]
     returns = ro["returns"]
     advantages = (returns - return_mean) / (return_std + 1e-8) if reward_norm else returns
-    msum = masks.sum().clamp_min(1.0)
+    msum = global_count(masks.sum()).clamp_min(1.0)  # the global batch's (reinforce.py:173)
     action_loss = -(logprobs * advantages * masks).sum() / msum
     entropy_loss = -(entropies * masks).sum() / msum
     loss = action_loss + entropy_weight * entropy_loss
@@ -122,8 +124,9 @@ def reinforce_loss(
 class ReinforceTrainer(Trainer):
     best_metric_name = "prop_patches_found"
 
-    def __init__(self, config, model, logger, train_dataset, test_dataset, device=None):
-        super().__init__(config, model, logger, train_dataset, test_dataset, device)
+    def __init__(self, config, model, logger, train_dataset, test_dataset, device=None,
+                 world=None):
+        super().__init__(config, model, logger, train_dataset, test_dataset, device, world)
         self.max_ep_len = config.max_seq_len
         self.entropy_weight = config.entropy_weight
         self.stop_enabled = config.stop_enabled
@@ -231,95 +234,73 @@ class ReinforceTrainer(Trainer):
 
     # --- the train step ---------------------------------------------------------
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """One REINFORCE iteration on a host batch; returns its metrics as
-        device scalars (no host synchronisation)."""
+        """One REINFORCE iteration on a host batch (this rank's rows);
+        returns its metrics over the global batch as device scalars (no host
+        synchronisation)."""
         cfg = self.config
         self._mark("start")
         images = self._batch_images(batch)
         self._mark("upload")
-        env = NeedleEnv(images, batch["bboxes"], cfg.patch_size, self.max_ep_len, 1,
-                        self.stop_enabled, stop_bonus_scale=getattr(cfg, "stop_bonus_scale", 1.0),
-                        device=self.device)
-        ro = rollout(self.model, env, sample=True, generator=self.generator,
-                     collect=("actions",))
-        self._mark("rollout")
-        loss, metrics = reinforce_loss(self.model, env, ro, self.last_return_mean,
-                                       self.last_return_std, self.entropy_weight,
-                                       cfg.reward_norm)
-        # Backward per loss term: the same summed gradient, and the rollout
-        # recompute's activations are freed before the detector runs.
-        loss.backward()
-        self._mark("loss")
-        if cfg.detection_enabled:
-            patches, targets, pvalid = env.get_detection_batch(
-                self.generator, cfg.max_det_patches, sample_neg=1)
-            det = detection_augment(self.generator, patches)
-            B, K = det.shape[:2]
-            head, _ = self.model.yolox_outputs(det.reshape((B * K,) + det.shape[2:]), train=True)
-            ylo = yolox_losses(head, targets.reshape((B * K,) + targets.shape[2:]),
-                               pvalid.reshape(-1))
-            ylo["total_loss"].backward()
-            loss = loss.detach() + ylo["total_loss"].detach()
-            for name, value in ylo.items():
-                metrics[f"yolo_{name}"] = value.detach()
-            metrics["yolo_loss"] = ylo["total_loss"].detach()
-            self._mark("detection")
+        with data_parallel(self.world, self.optimizer.trained_params()):
+            env = NeedleEnv(images, batch["bboxes"], cfg.patch_size, self.max_ep_len, 1,
+                            self.stop_enabled,
+                            stop_bonus_scale=getattr(cfg, "stop_bonus_scale", 1.0),
+                            device=self.device)
+            ro = rollout(self.model, env, sample=True, generator=self.generator,
+                         collect=("actions",))
+            self._mark("rollout")
+            loss, metrics = reinforce_loss(self.model, env, ro, self.last_return_mean,
+                                           self.last_return_std, self.entropy_weight,
+                                           cfg.reward_norm)
+            # Backward per loss term: the same summed gradient, and the rollout
+            # recompute's activations are freed before the detector runs.
+            loss.backward()
+            self._mark("loss")
+            if cfg.detection_enabled:
+                patches, targets, pvalid = env.get_detection_batch(
+                    self.generator, cfg.max_det_patches, sample_neg=1)
+                det = detection_augment(self.generator, patches)
+                B, K = det.shape[:2]
+                head, _ = self.model.yolox_outputs(det.reshape((B * K,) + det.shape[2:]),
+                                                   train=True)
+                ylo = yolox_losses(head, targets.reshape((B * K,) + targets.shape[2:]),
+                                   pvalid.reshape(-1))
+                ylo["total_loss"].backward()
+                loss = loss.detach() + ylo["total_loss"].detach()
+                for name, value in ylo.items():
+                    metrics[f"yolo_{name}"] = value.detach()
+                metrics["yolo_loss"] = ylo["total_loss"].detach()
+                self._mark("detection")
         metrics["loss"] = loss.detach()
+        metrics = reduce_metrics(metrics, self.world, self.RANK_MEAN_METRICS, self.GLOBAL_METRICS)
         self.optimizer.step()
         self.step += 1
         self._mark("optimizer")
         return metrics
 
     # --- train loop (reference: src/reinforce.py:267-362) -----------------------
-    def run(self):
-        cfg = self.config
-        order_rng = np.random.default_rng(cfg.seed)
-        if self.logger is not None:
-            self.logger.log_start(self.model)
-        index_pool = []
-        batch_counter = [0]
+    def build_batch(self, indices, seed: int) -> Dict[str, np.ndarray]:
+        return self._build_env_batch(indices, seed, with_pixels=self.pool is None)
 
-        def pick_work():
-            nonlocal index_pool
-            while len(index_pool) < cfg.batch_size:
-                index_pool += order_rng.permutation(len(self.train_dataset)).tolist()
-            indices, index_pool = index_pool[: cfg.batch_size], index_pool[cfg.batch_size :]
-            batch_counter[0] += 1
-            return indices, cfg.seed + 1 + batch_counter[0]
-
-        self.pool = self.build_pool()
-        if self.pool is not None:
+    def train_pool(self):
+        pool = self.build_pool()
+        if pool is not None:
             # A pool padded beyond the training shape cannot fill the env's
             # images (``reinforce.py:380-397``).
-            hp, wp = self.pool.images.shape[1:3]
+            hp, wp = pool.images.shape[1:3]
             hf, wf = self.fixed_shape
             if hp > hf or wp > wf:
                 print("device pool: pad shape exceeds fixed training shape, streaming instead")
-                self.pool = None
-        with_pixels = self.pool is None
-        prefetcher = Prefetcher(lambda work: self._build_env_batch(*work, with_pixels=with_pixels),
-                                n_prefetch=2, num_workers=cfg.num_workers, pick_work=pick_work)
-        try:
-            for it in range(1, cfg.max_iters + 1):
-                self.maybe_profile(it)
-                metrics = self.train_step(next(prefetcher))
-                self.iter_num = it
-                self.last_train_metrics = metrics
-                if it % self.PRINT_EVERY == 0:
-                    print(f"iter {it}: loss {float(metrics['loss']):.4f}", flush=True)
-                if cfg.reward_norm:
-                    self._window_stats.append(
-                        (metrics["ret_sum"], metrics["ret_sumsq"], metrics["ret_count"]))
-                    if it % cfg.gradient_accumulation == 0:
-                        self._update_return_stats()
-                if it % cfg.test_every == 0:
-                    self.test()
-        finally:
-            prefetcher.close()
-            self.maybe_profile(-1)
+                pool = None
+        return pool
 
-        self.prepare_validation()
-        self.test()
+    def after_step(self, it: int, metrics) -> None:
+        cfg = self.config
+        if cfg.reward_norm:
+            self._window_stats.append(
+                (metrics["ret_sum"], metrics["ret_sumsq"], metrics["ret_count"]))
+            if it % cfg.gradient_accumulation == 0:
+                self._update_return_stats()
 
     # --- evaluation --------------------------------------------------------------
     def compute_rollout_metrics(self, ro: Dict[str, np.ndarray]) -> Dict[str, float]:

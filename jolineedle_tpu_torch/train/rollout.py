@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..env.batched_env import NeedleEnv
+from ..parallel.mesh import draw
 
 
 @torch.no_grad()
@@ -86,7 +87,7 @@ def rollout(
             logits, cache = model.decode_step(cache, patches[:, 0], action, state.positions, t)
         logits = logits.float()
         if sample:
-            u = torch.rand(logits.shape, generator=generator, device=dev)
+            u = draw(lambda s: torch.rand(s, generator=generator, device=dev), logits.shape)
             action = (logits - torch.log(-torch.log(u))).argmax(-1)
         else:
             action = logits.argmax(-1)

@@ -62,9 +62,10 @@ from ..env.oracle import OracleEnv, gather_patches, generate_sample, move_toward
 from ..ops.augment import detection_augment
 from ..ops.nms import nms_numpy, postprocess, sigmoid_np
 from ..ops.simota import yolox_losses
+from ..parallel.mesh import data_parallel, global_count, reduce_metrics
 from ..utils.geometry import BBox, Position, parse_bbox_predictions, parse_bbox_targets
 from ..utils.metrics import average_precision_50
-from .batching import Prefetcher, build_supervised_batch
+from .batching import build_supervised_batch
 from .rollout import rollout
 from .trainer import Trainer
 
@@ -86,14 +87,16 @@ def upload_keys(batch: Dict[str, np.ndarray]) -> Tuple[str, ...]:
 
 def action_ce_metrics(logits, targets, masks, class_weight):
     """Class-weighted CE and accuracy over the non-padding tokens
-    (``supervised.py:56-69``); tensors in, scalar tensors out."""
+    (``supervised.py:56-69``); tensors in, scalar tensors out. Inside
+    ``parallel.mesh.data_parallel`` both are divided by the global batch's
+    token count: this rank's shares."""
     n_act = logits.shape[-1]
     logits = logits.reshape(-1, n_act)
     targets = targets.reshape(-1).long()
     mask = masks.reshape(-1).float()
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(1, targets[:, None])[:, 0] * class_weight[targets]
-    denom = mask.sum().clamp_min(1.0)
+    denom = global_count(mask.sum()).clamp_min(1.0)  # the global batch's
     action_loss = (nll * mask).sum() / denom
     accuracy = ((logits.argmax(-1) == targets).float() * mask).sum() / denom
     return action_loss, accuracy
@@ -149,8 +152,9 @@ def detection_loss(model, det, batch):
 class SupervisedTrainer(Trainer):
     best_metric_name = "map"
 
-    def __init__(self, config, model, logger, train_dataset, test_dataset, device=None):
-        super().__init__(config, model, logger, train_dataset, test_dataset, device)
+    def __init__(self, config, model, logger, train_dataset, test_dataset, device=None,
+                 world=None):
+        super().__init__(config, model, logger, train_dataset, test_dataset, device, world)
         weight = np.ones((self.actions_info[0].nclasses,), np.float32)
         if config.stop_enabled:
             weight[Action.STOP.value] = config.stop_weight
@@ -168,8 +172,9 @@ class SupervisedTrainer(Trainer):
                                    self.config.patch_size)
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """One iteration on a host batch of ``build_supervised_batch``;
-        returns its metrics as device scalars (no host synchronisation).
+        """One iteration on a host batch of ``build_supervised_batch`` (this
+        rank's rows); returns its metrics over the global batch as device
+        scalars (no host synchronisation).
         A batch without ``patches`` takes its pixels from ``self.pool``.
         Each loss term is differentiated as soon as it is computed: the same
         summed gradient, with the decoder's activations freed before the
@@ -186,80 +191,45 @@ class SupervisedTrainer(Trainer):
                 canvases = aug_canvases(self.pool.images, dev["image_idx"], dev.get("aug_rot"),
                                         dev.get("aug_shift"), dev.get("base_hw"))
             raw = self._pool_patches(dev, dev["positions"], canvases)
-        patches = detection_augment(self.generator, raw)
-        loss, metrics = decision_loss(self.model, patches, dev, self.class_weight,
-                                      self.generator)
-        loss.backward()
-        loss = loss.detach()
-        self._mark("decision")
-        if cfg.detection_enabled:
-            if "patches_yolox" in dev:
-                raw = dev["patches_yolox"]
-            else:
-                # The streamed batch's padding patches are zeros; so are these.
-                raw = self._pool_patches(dev, dev["yolox_positions"], canvases)
-                raw = raw * dev["yolox_valid"][:, :, None, None, None].to(raw.dtype)
-            det = detection_augment(self.generator, raw)
-            ylo = detection_loss(self.model, det, dev)
-            ylo["total_loss"].backward()
-            loss = loss + ylo["total_loss"].detach()
-            for name, value in ylo.items():
-                metrics[f"yolo_{name}"] = value.detach()
-            metrics["yolo_loss"] = ylo["total_loss"].detach()
-            self._mark("detection")
+        with data_parallel(self.world, self.optimizer.trained_params()):
+            patches = detection_augment(self.generator, raw)
+            loss, metrics = decision_loss(self.model, patches, dev, self.class_weight,
+                                          self.generator)
+            loss.backward()
+            loss = loss.detach()
+            self._mark("decision")
+            if cfg.detection_enabled:
+                if "patches_yolox" in dev:
+                    raw = dev["patches_yolox"]
+                else:
+                    # The streamed batch's padding patches are zeros; so are these.
+                    raw = self._pool_patches(dev, dev["yolox_positions"], canvases)
+                    raw = raw * dev["yolox_valid"][:, :, None, None, None].to(raw.dtype)
+                det = detection_augment(self.generator, raw)
+                ylo = detection_loss(self.model, det, dev)
+                ylo["total_loss"].backward()
+                loss = loss + ylo["total_loss"].detach()
+                for name, value in ylo.items():
+                    metrics[f"yolo_{name}"] = value.detach()
+                metrics["yolo_loss"] = ylo["total_loss"].detach()
+                self._mark("detection")
         metrics["loss"] = loss
+        metrics = reduce_metrics(metrics, self.world, self.RANK_MEAN_METRICS, self.GLOBAL_METRICS)
         self.optimizer.step()
         self.step += 1
         self._mark("optimizer")
         return metrics
 
     # --- train loop (reference: src/supervised.py:812-911) ----------------------
-    def run(self):
+    def train_iterations(self):
         """``max_iters - 1`` iterations, as the JAX loop runs
-        (``supervised.py:343``), a test every ``test_every``; then the best
-        checkpoint's test on the whole test set."""
-        cfg = self.config
-        dataset = self.train_dataset
-        order_rng = np.random.default_rng(cfg.seed)
-        if self.logger is not None:
-            self.logger.log_start(self.model)
-        index_pool = []
-        batch_counter = [0]
+        (``supervised.py:343``)."""
+        return range(1, self.config.max_iters)
 
-        def pick_work():
-            # Serialized by the prefetcher: draws the sample indices and a
-            # per-batch rng seed so workers never share rng state.
-            nonlocal index_pool
-            while len(index_pool) < cfg.batch_size:
-                index_pool += order_rng.permutation(len(dataset)).tolist()
-            indices, index_pool = index_pool[: cfg.batch_size], index_pool[cfg.batch_size :]
-            batch_counter[0] += 1
-            return indices, cfg.seed + 1 + batch_counter[0]
-
-        self.pool = self.build_pool()
-
-        def make_batch(work):
-            indices, seed = work
-            return build_supervised_batch(dataset, indices, cfg, np.random.default_rng(seed),
-                                          with_pixels=self.pool is None)
-
-        prefetcher = Prefetcher(make_batch, n_prefetch=2, num_workers=cfg.num_workers,
-                                pick_work=pick_work)
-        try:
-            for self.iter_num in range(1, cfg.max_iters):
-                self.maybe_profile(self.iter_num)
-                metrics = self.train_step(next(prefetcher))
-                self.last_train_metrics = metrics
-                if self.iter_num % self.PRINT_EVERY == 0:
-                    print(f"iter {self.iter_num}: loss {float(metrics['loss']):.4f}", flush=True)
-                if self.iter_num % cfg.test_every == 0:
-                    self.test()
-        finally:
-            prefetcher.close()
-            self.maybe_profile(-1)
-
-        self.prepare_validation()
-        self.test()
+    def build_batch(self, indices, seed: int) -> Dict[str, np.ndarray]:
+        return build_supervised_batch(self.train_dataset, indices, self.config,
+                                      np.random.default_rng(seed),
+                                      with_pixels=self.pool is None)
 
     # --- autoregressive eval ----------------------------------------------------
     @staticmethod
