@@ -141,11 +141,35 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    8 on the shared card, 3 iterations a mode: the wall ms per step (two
    processes share one card: not a multi-card time) beside W = 1 x B = 16,
    the gradient all-reduce's ms and bytes, the BN syncs per step. (e) With
-   two cards or more, (a)'s runs again over NCCL on cuda:0 and cuda:1, and
-   the train CLI with ``--devices 0 1`` trains REINFORCE 2 iterations with
-   a test on rank 0 (the ranks' state check and the barrier over NCCL):
-   both ranks report equal losses and the digest they agreed on; with one
-   card, a line says (e) was not run.
+   two cards or more, (a)'s runs again over NCCL, one rank on each visible
+   card (W = 4 x B = 2 on four cards; two cards where their count does not
+   divide the global batch of 8), with (a)'s checks against W = 1 x B = 8,
+   and the train CLI with ``--devices 0 1 ...`` over those cards trains
+   REINFORCE 2 iterations with a test on rank 0 (the ranks' state check
+   and the barrier over NCCL): every rank reports the same losses and the
+   digest they agreed on. With more than two cards, bf16 steps of B = 8 a
+   rank at W = 1, 2 and all of them, one rank per card, 3 iterations a
+   mode: the wall ms per step, images/s and the gradient all-reduce's ms
+   and bytes. With one card, a line says (e) was not run;
+14. steps per dispatch: each trainer through the train CLI at
+   ``--steps-per-dispatch`` 2 and 1, float32 at B = 4 on phase 9's toy
+   set, accumulation 2, a test every 2 iterations, 5 iterations (a short
+   last chunk): the per-iteration losses within rtol 1e-4, the weights by
+   phase 13's rule, the BN statistics within 1e-4, REINFORCE's return mean
+   and std within rtol 1e-4, each train step's kernel launches and each
+   run's total equal; each CLI error for an N that does not divide raises
+   before any launch; two ranks sharing the card over gloo at N = 2
+   against N = 1 (REINFORCE, 4 iterations) by phase 13's comparison; bf16
+   step times at B = 16, N = 1 and 2 in turns (1, 2, 2, 1, 1, 2);
+15. oracle ceiling: ``python -m jolineedle_tpu_torch.scripts.
+   eval_oracle_ceiling`` on phase 11's run on the card: its
+   ``ORACLE-CEILING`` line, wall ms and the conv kernels' launches (one
+   detector call per EVAL_DET_ROWS test images); then on the CPU
+   (``device="cpu"``), every number within 1e-4; the run unchanged;
+16. pyramid: ``NeedleEnv`` with 2 and 3 glimpse levels on float32 images of
+   2688 px (B = 4, 448 px patches) on the card against the CPU: the
+   pyramid, ``reset``, 20 ``step``s and ``get_patches`` within 1e-5; the
+   pyramid build timed (median of 20 event pairs).
 
 Phase 3 also holds the flash-attention kernel against its plain versions
 (output, log-sum-exp and gradients) at the decoder's shape [16, 3, 21, 16]
@@ -961,10 +985,11 @@ def require(ok, what: str) -> None:
 
 
 def read_launches(port) -> dict:
-    return {"dwblock_bn_silu": port.kconv.dwblock_bn_silu.launches,
-            "conv3x3_bn_silu": port.kconv.conv3x3_bn_silu.launches,
-            "conv3x3": port.kconv.conv3x3.launches,
-            "flash_attention": port.kattn.flash_attention.launches}
+    """The four wrappers' counters (``counted``: their launches on the card)."""
+    return {k: getattr(w, counted()) for k, w in (
+        ("dwblock_bn_silu", port.kconv.dwblock_bn_silu),
+        ("conv3x3_bn_silu", port.kconv.conv3x3_bn_silu), ("conv3x3", port.kconv.conv3x3),
+        ("flash_attention", port.kattn.flash_attention))}
 
 
 def reset_launches(port) -> None:
@@ -2162,29 +2187,66 @@ def ddp_compare(what, one, ranks_out, ranks_mod):
     return numbers["loss_before"], numbers["loss_after"], numbers["stats"]
 
 
-def ddp_cli_check(port, toy, root, seed):
-    """(e)'s train CLI with ``--devices 0 1``: one rank on each card
-    (``mesh.rank_devices``), REINFORCE for DDP_NCCL_ITERS iterations with a
-    test on rank 0 after the last, behind the state check (``check_agree``)
-    and the barrier, then the final test. Both ranks report the digest they
-    agreed on and equal losses; rank 0 wrote the checkpoint."""
-    flags = ddp_flags(toy, root / "cli", seed, "reinforce", DDP_B)
+def ddp_cards() -> list:
+    """The cards of (e): every visible one, or two where their count does
+    not divide the global batch of 2 DDP_B rows; none with fewer than two."""
+    n = torch.cuda.device_count() if DEVICE == "cuda" else 0
+    if n < 2:
+        return []
+    return [torch.device("cuda", i) for i in range(n if (2 * DDP_B) % n == 0 else 2)]
+
+
+def ddp_cli_check(port, toy, root, seed, cards):
+    """(e)'s train CLI with ``--devices`` over ``cards``: one rank on each
+    card (``mesh.rank_devices``), REINFORCE for DDP_NCCL_ITERS iterations
+    with a test on rank 0 after the last, behind the state check
+    (``check_agree``) and the barrier, then the final test. Every rank
+    reports the digest they agreed on and the same losses; rank 0 wrote the
+    checkpoint."""
+    flags = ddp_flags(toy, root / "cli", seed, "reinforce", 2 * DDP_B // len(cards))
     at = flags.index("--devices")
-    flags[at + 1:at + 2] = ["0", "1"]
+    flags[at + 1:at + 2] = [str(i) for i in range(len(cards))]
     for flag, value in (("--max-iters", DDP_NCCL_ITERS), ("--test-every", DDP_NCCL_ITERS)):
         flags[flags.index(flag) + 1] = str(value)
     summaries = port.train_main(port.tconfig.get_args(flags))
-    devices = ["cuda:0", "cuda:1"] if DEVICE == "cuda" else [DEVICE, DEVICE]
+    devices = [str(c) for c in cards]
     require([(s["rank"], s["device"]) for s in summaries] == list(enumerate(devices)),
             f"ddp nccl cli: ranks {[(s['rank'], s['device']) for s in summaries]}")
-    a, b = summaries
-    require(a["digest"] is not None and a["digest"] == b["digest"] and a["losses"] == b["losses"]
-            and len(a["losses"]) == DDP_NCCL_ITERS and all(math.isfinite(x) for x in a["losses"]),
+    a = summaries[0]
+    require(a["digest"] is not None and len(a["losses"]) == DDP_NCCL_ITERS
+            and all(math.isfinite(x) for x in a["losses"])
+            and all(b["digest"] == a["digest"] and b["losses"] == a["losses"]
+                    for b in summaries[1:]),
             f"ddp nccl cli: the ranks' summaries {summaries}")
     require((root / "cli" / "ddp_reinforce" / "checkpoint.pt").is_file(),
             "ddp nccl cli: rank 0 wrote no checkpoint")
-    say(f"ddp nccl cli: --devices 0 1 trained on {devices} over NCCL, tested on rank 0 behind"
-        f" the state check and the barrier: losses {a['losses']} on both ranks, digests equal")
+    say(f"ddp nccl cli: --devices {' '.join(flags[at + 1:at + 1 + len(cards)])} trained on"
+        f" {devices} over NCCL, tested on rank 0 behind the state check and the barrier:"
+        f" losses {a['losses']} on every rank, digests equal")
+
+
+def ddp_scaling(seed, toy, root, cards, ranks_mod, mesh):
+    """bf16 steps at DDP_TIME_B rows a rank, one rank per card, at W = 1,
+    2 and len(cards): the wall ms per step, images/s and the gradient
+    all-reduce's ms and bytes, DDP_TIME_ITERS iterations a mode."""
+    modes = ("supervised", "reinforce")
+    jobs = [dict(flags=ddp_flags(toy, root / "scaling", seed, m, DDP_TIME_B, dtype="bfloat16",
+                                 augment=False), iters=DDP_TIME_ITERS, time=True)
+            for m in modes]
+    widths = sorted({1, 2, len(cards)})
+    for w in widths:
+        runs = ([ranks_mod.train_rank_steps(mesh.single(cards[0]), jobs)] if w == 1
+                else mesh.launch(ranks_mod.train_rank_steps, (jobs,), cards[:w]))
+        for i, mode in enumerate(modes):
+            recs = [r[i] for r in runs]
+            require(all(r["digests"] == recs[0]["digests"] for r in recs),
+                    f"ddp scaling {mode} W={w}: the ranks disagree")
+            step_ms = statistics.median(x for r in recs for x in r["step_ms"])
+            sync = (f"; gradient all-reduce (NCCL) {recs[0]['sync_ms']:.2f} ms for"
+                    f" {recs[0]['sync_bytes']:,} bytes" if w > 1 else "")
+            say(f"ddp scaling {mode} bf16: W={w} x B={DDP_TIME_B}, one rank per card,"
+                f" {step_ms:.2f} ms wall per step, {1e3 * w * DDP_TIME_B / step_ms:.1f} images/s"
+                f"{sync}; losses {[round(x, 4) for x in recs[0]['losses']]}")
 
 
 def ddp_phase(port, seed, toy):
@@ -2193,8 +2255,9 @@ def ddp_phase(port, seed, toy):
     their kernel launches per iteration; (c) the train CLI as the one rank
     of an NCCL group from torchrun's variables against the same run without
     a group; (d) bf16 step times at W = 2 on the shared card; (e) NCCL
-    across two cards when there are two, and the train CLI over them. Returns the launches of the
-    ranks' runs and of (c)'s grouped run."""
+    across every visible card when there are two or more, the train CLI
+    over them and, past two, bf16 step times at W = 1, 2 and all. Returns
+    the launches of the ranks' runs and of (c)'s grouped run."""
     from jolineedle_tpu_torch.parallel import mesh, ranks as ranks_mod
 
     start = time.perf_counter()
@@ -2279,25 +2342,288 @@ def ddp_phase(port, seed, toy):
         f" equal to the run without a group; launches {grouped_counts} as there")
     del grouped, alone
 
-    # (e): NCCL across two cards
-    if torch.cuda.device_count() >= 2:
-        nccl = mesh.launch(ranks_mod.train_rank_steps, (jobs(DDP_B),),
-                           [card, torch.device("cuda", 1)])
+    # (e): NCCL across every visible card
+    cards = ddp_cards()
+    if cards:
+        w = len(cards)
+        nccl = mesh.launch(ranks_mod.train_rank_steps, (jobs(2 * DDP_B // w),), cards)
         for i, mode in enumerate(modes):
             before, after, stat_rel = ddp_compare(f"ddp nccl {mode}", one[i],
                                                   [r[i] for r in nccl], ranks_mod)
-            say(f"ddp nccl {mode}: W=2 x B={DDP_B} on cuda:0 and cuda:1 against W=1: largest"
-                f" relative loss difference {before:.2e} / {after:.2e}, BN statistics"
-                f" {stat_rel:.2e}; states bit-equal across ranks")
+            say(f"ddp nccl {mode}: W={w} x B={2 * DDP_B // w} on {[str(c) for c in cards]}"
+                f" against W=1: largest relative loss difference {before:.2e} / {after:.2e},"
+                f" BN statistics {stat_rel:.2e}; states bit-equal across ranks")
         for rank in nccl:
             for job in rank:
                 for counts in job[counted()]:
                     launches.update(counts)
-        ddp_cli_check(port, toy, root, seed)
+        ddp_cli_check(port, toy, root, seed, cards)
+        if w > 2:
+            ddp_scaling(seed, toy, root, cards, ranks_mod, mesh)
     else:
-        say("ddp: one card visible, so NCCL across two cards (13e) was not run")
+        say("ddp: one card visible, so NCCL across cards (13e) was not run")
     say(f"ddp: the phase took {time.perf_counter() - start:.1f} s")
     return launches
+
+
+# --- phase 14: --steps-per-dispatch ----------------------------------------------------------
+# Each mode at N = SPD_N and 1: SPD_ITERS iterations of SPD_B rows, float32, a
+# test every SPD_N; the bf16 step times at TRAIN_B over SPD_TIME_ITERS
+# iterations, from the third on.
+SPD_N, SPD_B, SPD_ITERS, SPD_TIME_ITERS = 2, 4, 5, 8
+
+
+def per_step_counts(port, fn):
+    """``fn()`` with each trainer's ``train_step`` recording its kernel
+    launches; returns (fn's result, the launches of every step in order)."""
+    record, classes = [], (port.ReinforceTrainer, port.SupervisedTrainer)
+    originals = {cls: cls.train_step for cls in classes}
+
+    def recording(step):
+        def train_step(self, batch):
+            before = read_launches(port)
+            out = step(self, batch)
+            record.append(dict(Counter(read_launches(port)) - Counter(before)))
+            return out
+        return train_step
+
+    for cls in classes:
+        cls.train_step = recording(originals[cls])
+    try:
+        return fn(), record
+    finally:
+        for cls, step in originals.items():
+            cls.train_step = step
+
+
+def spd_flags(toy, work_dir, seed, mode, spd, extra=()):
+    """Phase 13's float32 flags in ``mode`` at SPD_B rows, with
+    ``--steps-per-dispatch spd``, a test every SPD_N and SPD_ITERS
+    iterations (the supervised loop runs ``--max-iters`` - 1)."""
+    flags = ddp_flags(toy, work_dir, seed, mode, SPD_B)
+    max_iters = SPD_ITERS + (mode == "supervised")
+    for flag, value in (("--max-iters", max_iters), ("--test-every", SPD_N),
+                        ("--env-name", f"spd_{mode}_{spd}")):
+        flags[flags.index(flag) + 1] = str(value)
+    return flags + ["--steps-per-dispatch", str(spd), *extra]
+
+
+def spd_refused(port, flags, what):
+    """The train CLI on ``flags`` must raise JAX's ValueError before any
+    launch."""
+    before = read_launches(port)
+    try:
+        port.train_main(port.tconfig.get_args(flags))
+    except ValueError as err:
+        message = str(err)
+    else:
+        raise AssertionError(f"spd: {what} trained")
+    require("steps-per-dispatch" in message and read_launches(port) == before,
+            f"spd: {what}: {message!r}, launches {read_launches(port)} after {before}")
+    say(f"spd: {what} refused before any launch: {message}")
+
+
+def spd_step_ms(port, flags, spd):
+    """The wall ms per bf16 train iteration at ``--steps-per-dispatch spd``
+    through ``Trainer.train_loop`` (the CLI's trainer, no test), from the
+    third iteration's start to the device's end of the last."""
+    from jolineedle_tpu_torch.main import build_trainer
+    from jolineedle_tpu_torch.parallel import mesh
+
+    args = port.tconfig.get_args(flags + ["--steps-per-dispatch", str(spd)])
+    train_config, model_config = port.tconfig.args_to_config(args)
+    trainer = build_trainer(mesh.single(DEVICE), train_config, model_config, args.dataset_dir,
+                            log=False)
+    starts, step = [], trainer.train_step
+    trainer.train_step = lambda batch: (starts.append(time.perf_counter()), step(batch))[1]
+    trainer.train_loop(range(1, SPD_TIME_ITERS + 1))
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - starts[2]) / (SPD_TIME_ITERS - 2)
+    del trainer
+    return ms
+
+
+def spd_phase(port, seed, toy):
+    """``--steps-per-dispatch``: each mode through the train CLI at SPD_N
+    and at 1 (float32): equal losses, weights, statistics, REINFORCE
+    return window and launches; the CLI's errors; two ranks at SPD_N
+    against 1; bf16 step times. Returns the launches of its runs."""
+    from jolineedle_tpu_torch.parallel import mesh, ranks as ranks_mod
+
+    start = time.perf_counter()
+    root = toy.parent / "spd"
+    shutil.rmtree(root, ignore_errors=True)
+    launches = Counter()
+    for mode in ("supervised", "reinforce"):
+        runs = {}
+        for spd in (1, SPD_N):
+            reset_launches(port)
+            trainer, steps = per_step_counts(port, lambda: port.train_main(
+                port.tconfig.get_args(spd_flags(toy, root, seed, mode, spd))))
+            total = read_launches(port)
+            launches.update(total)
+            runs[spd] = (trainer, steps, total)
+        (one, one_steps, one_total), (many, many_steps, many_total) = runs[1], runs[SPD_N]
+        a = np.array([float(v) for v in one.loss_history])
+        b = np.array([float(v) for v in many.loss_history])
+        require(len(a) == len(b) == SPD_ITERS and np.allclose(b, a, rtol=1e-4, atol=0),
+                f"spd {mode}: losses {b.tolist()} at N={SPD_N}, {a.tolist()} at N=1")
+        require((many.step, many.optimizer.updates, many.iter_num)
+                == (one.step, one.optimizer.updates, one.iter_num),
+                f"spd {mode}: step, updates, iteration")
+        one_state = {k: v.cpu() for k, v in one.model.state_dict().items()}
+        many_state = {k: v.cpu() for k, v in many.model.state_dict().items()}
+        misses = ranks_mod.weights_disagree(one_state, many_state, lambda name: 1e-4)
+        stat_rel = ranks_mod.stats_relative(one_state, many_state)
+        require(not misses and stat_rel < 1e-4, f"spd {mode}: {misses[:5]}, BN {stat_rel:.3g}")
+        require(many_steps == one_steps and len(one_steps) == SPD_ITERS
+                and many_total == one_total,
+                f"spd {mode}: launches per step {many_steps} against {one_steps}, totals"
+                f" {many_total} against {one_total}")
+        window = ""
+        if mode == "reinforce":
+            got = [many.last_return_mean, many.last_return_std]
+            want = [one.last_return_mean, one.last_return_std]
+            require(np.allclose(got, want, rtol=1e-4, atol=0)
+                    and len(many._window_stats) == len(one._window_stats) == 1,
+                    f"spd reinforce: return window {got} against {want}")
+            window = f", return mean and std {got} against {want}"
+        say(f"spd {mode}: the train CLI at --steps-per-dispatch {SPD_N} against 1, float32,"
+            f" B={SPD_B}, {SPD_ITERS} iterations (the last chunk short), a test every {SPD_N}:"
+            f" largest relative loss difference {float(np.max(np.abs(b - a) / np.abs(a))):.2e},"
+            f" weights agree, BN statistics {stat_rel:.2e} apart{window}; launches per step"
+            f" {one_steps[0]}, the run's {one_total}, equal")
+        del one, many, runs
+
+    refused = root / "refused"
+    spd_refused(port, spd_flags(toy, refused, seed, "supervised", 3),
+                "supervised N=3, test every 2")
+    spd_refused(port, spd_flags(toy, refused, seed, "reinforce", 3), "reinforce N=3, test every 2")
+    spd_refused(port, spd_flags(toy, refused, seed, "reinforce", 2,
+                                ["--gradient-accumulation", "3"]), "reinforce N=2, accumulation 3")
+
+    # two ranks sharing the card over gloo, at SPD_N against 1
+    card = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    jobs = [dict(flags=ddp_flags(toy, root / f"ddp{spd}", seed, "reinforce", DDP_B)
+                 + ["--steps-per-dispatch", str(spd)], iters=DDP_ITERS, tf32=False)
+            for spd in (1, SPD_N)]
+    two = mesh.launch(ranks_mod.train_rank_steps, (jobs,), [card, card], backend="gloo")
+    require(two[0][0]["digests"] == two[1][0]["digests"], "spd ddp: the N=1 ranks disagree")
+    before, after, stat_rel = ddp_compare(f"spd ddp reinforce N={SPD_N}", two[0][0],
+                                          [r[1] for r in two], ranks_mod)
+    for rank in two:
+        for job in rank:
+            for counts in job[counted()]:
+                launches.update(counts)
+    say(f"spd ddp reinforce: W=2 x B={DDP_B} (gloo, one card) at N={SPD_N} against N=1,"
+        f" {DDP_ITERS} iterations: largest relative loss difference {before:.2e} before the"
+        f" first update, {after:.2e} after, BN statistics {stat_rel:.2e}; every rank's state"
+        f" bit-equal to rank 0's, launches per iteration equal")
+
+    # bf16 step times, N = 1 and SPD_N in turns
+    for mode in ("supervised", "reinforce"):
+        flags = ddp_flags(toy, root / "timed", seed, mode, TRAIN_B, dtype="bfloat16",
+                          augment=False)
+        times = {1: [], SPD_N: []}
+        for spd in (1, SPD_N, SPD_N, 1, 1, SPD_N):
+            times[spd].append(spd_step_ms(port, flags, spd))
+        say(f"spd {mode} bf16 B={TRAIN_B}: {statistics.mean(times[SPD_N]):.2f} ms per iteration"
+            f" at --steps-per-dispatch {SPD_N} ({', '.join(f'{t:.2f}' for t in times[SPD_N])}),"
+            f" {statistics.mean(times[1]):.2f} at 1 ({', '.join(f'{t:.2f}' for t in times[1])});"
+            f" iterations 3-{SPD_TIME_ITERS} of runs in the order 1, {SPD_N}, {SPD_N}, 1, 1,"
+            f" {SPD_N}")
+    say(f"spd: the phase took {time.perf_counter() - start:.1f} s")
+    return launches
+
+
+# --- phase 15: the oracle ceiling -----------------------------------------------------------
+def oracle_phase(port, run_dir):
+    """``scripts/eval_oracle_ceiling.py`` on ``run_dir`` on the card (its
+    line, wall ms and exact conv launches), then on the CPU: every number
+    within 1e-4; the run left as it was. Returns the card run's launches."""
+    import contextlib
+    import io
+
+    from jolineedle_tpu_torch.scripts import eval_oracle_ceiling
+
+    before = run_dir_state(run_dir)
+    reset_launches(port)
+    out = io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        got = eval_oracle_ceiling.main([str(run_dir)])
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - start)
+    lines = [line for line in out.getvalue().splitlines() if line.startswith("ORACLE-CEILING: ")]
+    require(len(lines) == 1 and json.loads(lines[0][len("ORACLE-CEILING: "):]) == got,
+            f"oracle ceiling: no ORACLE-CEILING line in {out.getvalue()[-500:]!r}")
+    calls = -(-got["n_images"] // EVAL_DET_ROWS)
+    counts = check_launches(port, f"oracle ceiling ({got['n_images']} images, {calls} detector"
+                            " calls)", conv_launches({"detector": calls}))
+    print(lines[0])
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = eval_oracle_ceiling.main([str(run_dir)], device="cpu")
+    cpu_ms = 1e3 * (time.perf_counter() - start)
+    require(cpu.keys() == got.keys() and all(
+        abs(cpu[k] - v) <= 1e-4 if isinstance(v, float) else cpu[k] == v for k, v in got.items()),
+        f"oracle ceiling: the card's {got}, the CPU's {cpu}")
+    require(read_launches(port) == counts, "oracle ceiling: the CPU run launched a kernel")
+    require(run_dir_state(run_dir) == before, f"oracle ceiling changed {run_dir}")
+    say(f"oracle ceiling on {run_dir.name}: map {got['map']:.6f}, prop_patches_found"
+        f" {got['prop_patches_found']:.6f}, stopped_inside_bbox {got['stopped_inside_bbox']:.6f},"
+        f" ep_len {got['ep_len']}, over {got['n_images']} images in {wall_ms:.1f} ms wall on the"
+        f" card (its CPU run {cpu_ms:.1f} ms, every number within 1e-4); {run_dir.name} unchanged")
+    return Counter(counts)
+
+
+# --- phase 16: the glimpse pyramid ---------------------------------------------------------
+PYRAMID_B, PYRAMID_TOL = 4, 1e-5
+
+
+def pyramid_phase(seed):
+    """``NeedleEnv`` with 2 and 3 glimpse levels on float32 images of GRID x
+    PATCH px on the card against the CPU; the pyramid build timed."""
+    from jolineedle_tpu_torch.env.batched_env import NeedleEnv, build_glimpse_pyramid
+
+    rng = np.random.default_rng(seed)
+    side = GRID * PATCH
+    images = rng.random((PYRAMID_B, side, side, 3), dtype=np.float32)
+    boxes = np.zeros((PYRAMID_B, 4, 4), np.float32)
+    boxes[:, 0] = [PATCH // 3, PATCH // 2, 2 * PATCH, PATCH + PATCH // 2]
+    boxes[:, 1] = [3 * PATCH + 10, 4 * PATCH + 20, 3 * PATCH + 90, 4 * PATCH + 60]
+    start = rng.integers(0, GRID, (PYRAMID_B, 2))
+    actions = rng.integers(0, 9, (STEPS, PYRAMID_B))
+    far = lambda a, b: float((a.cpu() - b).abs().max())
+    for levels in (2, 3):
+        envs = [NeedleEnv(images, boxes, PATCH, STEPS, levels, stop_enabled=True, device=d)
+                for d in (DEVICE, "cpu")]
+        errs = [far(envs[0].pyramid, envs[1].pyramid)]
+        (card, card_patches, _), (cpu, cpu_patches, _) = (
+            env.reset(positions=torch.from_numpy(start)) for env in envs)
+        errs.append(far(card_patches, cpu_patches))
+        for t in range(STEPS):
+            a = torch.from_numpy(actions[t])
+            got, want = envs[0].step(card, a.to(DEVICE)), envs[1].step(cpu, a)
+            card, cpu = got[0], want[0]
+            for x, y in zip(tuple(card) + got[2:5], tuple(cpu) + want[2:5]):
+                require(torch.equal(x.cpu(), y) if x.dtype != torch.float32
+                        else far(x, y) <= 1e-6, f"pyramid L={levels}: step {t} state")
+            errs.append(far(got[1], want[1]))
+        errs.append(far(envs[0].get_patches(card), envs[1].get_patches(cpu)))
+        require(tuple(got[1].shape) == (PYRAMID_B, levels, PATCH, PATCH, 3)
+                and max(errs) <= PYRAMID_TOL, f"pyramid L={levels}: patches {max(errs):.3g} apart")
+        images_dev = envs[0].images
+        ms = (median_ms(lambda: build_glimpse_pyramid(images_dev, PATCH, levels))
+              if DEVICE == "cuda" else float("nan"))
+        n_bytes = images.nbytes * (1 + levels)  # the images read, the L levels written
+        say(f"pyramid L={levels}: [{PYRAMID_B}, {side}, {side}, 3] float32 on the card against"
+            f" the CPU: pyramid, reset, {STEPS} steps and get_patches within {max(errs):.2e}"
+            f" (limit {PYRAMID_TOL}); build {ms:.4f} ms (median of {REPS}), against"
+            f" {n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms to move its {n_bytes:,} bytes once")
+        del envs
 
 
 def import_port():
@@ -2401,6 +2727,11 @@ def main(argv=None) -> int:
     by_path["eval"] = eval_phase(port, args.seed, model_dir, sup_run)
     torch.cuda.empty_cache()
     by_path["ddp"] = ddp_phase(port, args.seed, toy)
+    torch.cuda.empty_cache()
+    by_path["spd"] = spd_phase(port, args.seed, toy)
+    torch.cuda.empty_cache()
+    by_path["oracle"] = oracle_phase(port, sup_run[0])
+    pyramid_phase(args.seed)
     launches = sum(by_path.values(), Counter())
     for name in KERNEL_NAMES:
         require(launches[name] > 0, f"{name} was launched no time on its path")

@@ -1,7 +1,6 @@
 """Batched glimpse environment over a batch of same-shape images, in PyTorch.
 
-The counterpart of ``jolineedle_tpu/env/batched_env.py`` with one glimpse
-level (the RL and serving paths use one, ``reinforce.py:104``): ``reset``,
+The counterpart of ``jolineedle_tpu/env/batched_env.py``: ``reset``,
 ``step``, ``masked_step``, ``terminated``, the rewards (with
 ``stop_bonus_scale``), the patch gather, the found-proportion metrics and
 the detection training batch (``get_detection_batch``).
@@ -10,8 +9,14 @@ no host synchronisation, so a rollout loop over it never waits on the card.
 
 The bbox -> patch masks and the boxes cut to each patch are built once on
 the host with the numpy ``parsing.split_boxes_to_patches`` and moved to the
-device. The glimpse pyramid
-(``n_glimps_levels > 1``) is not ported yet and raises.
+device.
+
+The glimpse pyramid (``n_glimps_levels`` L > 1, :func:`build_glimpse_pyramid`)
+takes float images only, as the JAX env asserts, and ``get_patches`` then
+returns the L levels' patches ``[B, L, P, P, C]``. No trainer of either
+package builds one (the RL and serving paths use one level,
+``reinforce.py:104``); the detection batch and ``gather_patches_at`` read
+level 0.
 """
 
 from __future__ import annotations
@@ -36,13 +41,65 @@ class EnvState(NamedTuple):
     has_stopped: torch.Tensor  # [B] bool
 
 
+def pyramid_taps(size: int, pad: int):
+    """Along one axis of ``size`` pixels, a pyramid level's taps: output
+    pixel o is ``sum_k weights[k, o] * input[index[k, o]]`` for the reflect
+    padding by ``pad`` followed by ``jax.image.resize(method="linear")``
+    from ``size + 2 pad`` back to ``size``. That resize weights the inputs
+    by a triangle around each output's centre, widened by the scale when it
+    shrinks (antialiasing), normalised to sum 1, all in float32
+    (``compute_weight_mat`` of ``jax._src.image.scale``), as here; the
+    reflection maps each padded index into the axis
+    (``jnp.pad(mode="reflect")``, edge not repeated). Both ``[K, size]``,
+    ``index`` int64 and ``weights`` float32."""
+    f32 = np.float32
+    n_in = size + 2 * pad
+    inv_scale = f32(1) / (f32(size) / f32(n_in))
+    width = max(inv_scale, f32(1))
+    centre = (np.arange(size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    k = int(np.ceil(2 * float(width))) + 1
+    index = np.floor(centre - width).astype(np.int64)[None, :] + 1 + np.arange(k)[:, None]
+    weights = np.maximum(f32(0), f32(1) - np.abs(centre[None, :] - index.astype(f32)) / width)
+    weights[(index < 0) | (index >= n_in)] = 0
+    weights = weights / weights.sum(axis=0, keepdims=True, dtype=f32)
+    period = 2 * (size - 1)
+    index = np.abs(np.clip(index, 0, n_in - 1) - pad) % max(period, 1)
+    index = np.where(index > size - 1, period - index, index)
+    return torch.from_numpy(index), torch.from_numpy(weights.astype(f32))
+
+
+def build_glimpse_pyramid(images: torch.Tensor, patch_size: int, n_levels: int) -> torch.Tensor:
+    """``[B, H, W, C]`` float images -> the ``[B, L, H, W, C]`` zoom-out
+    pyramid (``batched_env.py:40-58``): level 0 is the image; each next
+    level reflect-pads the last by ``patch_size`` on every side and resizes
+    it back to H x W, one axis after the other through
+    :func:`pyramid_taps` (gathers and float32 multiply-adds in a fixed
+    order, so the card and the CPU agree)."""
+    h, w = images.shape[1:3]
+    taps = [[t.to(images.device) for t in pyramid_taps(n, int(patch_size))] for n in (h, w)]
+    levels = [images]
+    for _ in range(n_levels - 1):
+        current = levels[-1]
+        for dim, (index, weights) in zip((1, 2), taps):
+            shape = [1, 1, 1, 1]
+            shape[dim] = -1
+            out = None
+            for k in range(index.shape[0]):
+                term = current.index_select(dim, index[k]) * weights[k].view(shape)
+                out = term if out is None else out + term
+            current = out
+        levels.append(current)
+    return torch.stack(levels, dim=1)
+
+
 class NeedleEnv:
     """Batched needle environment.
 
     Args:
         images: ``[B, H, W, C]`` uint8 (0-255) or float (0-1) images, numpy or
             tensor; H and W are multiples of ``patch_size``. uint8 stays
-            uint8 on the device and patches are scaled by 1/255 at gather.
+            uint8 on the device and patches are scaled by 1/255 at gather;
+            it requires ``n_glimps_levels`` = 1 (the pyramid resizes floats).
         bboxes: ``[B, N, 4]`` padded pixel xyxy boxes (inclusive
             bottom-right); ``box_valid`` ``[B, N]``, or None for "positive
             extent".
@@ -62,14 +119,10 @@ class NeedleEnv:
         stop_bonus_scale: float = 1.0,
         device=None,
     ):
-        if n_glimps_levels != 1:
-            raise NotImplementedError(
-                "the glimpse pyramid (n_glimps_levels > 1) is not ported yet"
-            )
         self.device = resolve_device(device)
         self.patch_size = int(patch_size)
         self.max_ep_len = int(max_ep_len)
-        self.n_glimps_levels = 1
+        self.n_glimps_levels = int(n_glimps_levels)
         self.stop_enabled = bool(stop_enabled)
         self.terminate_on_all_found = bool(terminate_on_all_found)
         self.stop_bonus_scale = float(stop_bonus_scale)
@@ -82,7 +135,12 @@ class NeedleEnv:
             raise ValueError(
                 f"image {self.height}x{self.width} is not a multiple of patch {self.patch_size}"
             )
+        if images.dtype == torch.uint8 and self.n_glimps_levels != 1:
+            raise ValueError("uint8 image storage requires n_glimps_levels == 1")
         self.images = images.to(self.device)
+        #: ``[B, L, H, W, C]`` with level 0 = ``images``; None at one level.
+        self.pyramid = (build_glimpse_pyramid(self.images, self.patch_size, self.n_glimps_levels)
+                        if self.n_glimps_levels > 1 else None)
         self.n_vertical_patches = self.height // self.patch_size
         self.n_horizontal_patches = self.width // self.patch_size
 
@@ -196,10 +254,16 @@ class NeedleEnv:
         return rewards
 
     def get_patches(self, state: EnvState) -> torch.Tensor:
-        """The ``[B, 1, P, P, C]`` patches under the agents, float32 (uint8
+        """The ``[B, L, P, P, C]`` patches under the agents, float32 (uint8
         images scaled by 1/255): one gather from a strided view of the
-        images, no copy of the grid."""
+        images (of the pyramid's L levels), no copy of the grid."""
         p = self.patch_size
+        if self.pyramid is not None:
+            tiled = self.pyramid.view(
+                self.batch_size, self.n_glimps_levels, self.n_vertical_patches, p,
+                self.n_horizontal_patches, p, self.n_channels,
+            )
+            return tiled[self._rows, :, state.positions[:, 0], :, state.positions[:, 1]]
         tiled = self.images.view(
             self.batch_size, self.n_vertical_patches, p, self.n_horizontal_patches, p,
             self.n_channels,

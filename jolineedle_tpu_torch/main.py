@@ -16,9 +16,9 @@ rank 0 alone prints, tests and writes the run directory. Under torchrun (its
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``;
 several hosts) each process is one rank, the ``l``-th local rank on the
 ``l``-th index of ``--devices``, and ``main`` returns its trainer. A repeated
-index is refused. ``chip_smoke.py`` runs ``--devices 0 1`` over NCCL when
-it sees two cards; more than two ranks over NCCL, and torchrun across
-hosts, have not yet run on any card.
+index is refused. ``chip_smoke.py`` runs ``--devices`` over
+every visible card (``0 1 2 3`` on four); torchrun across hosts has not
+yet run on any card.
 
 Both training modes are ported: ``supervised`` (the default,
 ``train/supervised.py``) and ``reinforce`` (``train/reinforce.py``).
@@ -40,8 +40,12 @@ and returns without training.
 ``--measure-flops`` runs once, on the first device, before any rank is
 spawned.
 
-Not ported yet, and refused with "not yet ported": ``--steps-per-dispatch``
-above 1 (a TPU dispatch workaround).
+``--steps-per-dispatch N`` trains in chunks of N iterations, the JAX
+package's one dispatch of N scanned steps. On the card a chunk is a loop
+over its steps (``Trainer.train_loop``), so the run equals the N = 1 run;
+the host looks only at a chunk's end: the printed loss, the REINFORCE return
+window and the tests follow the chunks, and N must divide ``--test-every``
+(and, with ``--reward-norm``, ``--gradient-accumulation``), as there.
 """
 
 from __future__ import annotations
@@ -81,10 +85,7 @@ def build_both_datasets(train_config, model_config, dataset_dir):
     )
 
 
-def _refuse_unported(train_config) -> None:
-    if int(getattr(train_config, "steps_per_dispatch", 1)) > 1:
-        raise NotImplementedError(
-            "--steps-per-dispatch > 1 is not yet ported to jolineedle_tpu_torch")
+def _refuse_bad_flags(train_config) -> None:
     if len(set(train_config.gpu_ids)) != len(train_config.gpu_ids):
         raise ValueError(f"--devices {list(train_config.gpu_ids)} repeats an index:"
                          " one rank runs on each device")
@@ -140,7 +141,7 @@ def launch_training(train_config, model_config, dataset_dir, device=None, world=
     """Build the trainer (:func:`build_trainer`) and train, or, with
     ``--measure-flops``, print the FLOP report instead. Runs as the rank
     ``world`` (default: alone on ``device``). Returns the trainer."""
-    _refuse_unported(train_config)
+    _refuse_bad_flags(train_config)
     world = mesh.single(resolve_device(device)) if world is None else world
     trainer = build_trainer(world, train_config, model_config, dataset_dir)
 
@@ -171,7 +172,7 @@ def main(args, device=None):
     unless ``device`` is the CPU. Returns the trainer; with more than one
     device, the ranks' summaries (:func:`train_rank`)."""
     train_config, model_config = args_to_config(args)
-    _refuse_unported(train_config)
+    _refuse_bad_flags(train_config)
     random.seed(train_config.seed)
     np.random.seed(train_config.seed)
     if args.group != "":

@@ -50,25 +50,35 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
-def main(argv=None, device=None) -> dict:
-    """Validate; returns the printed metrics."""
-    args = get_args(argv)
-    run_dir = Path(args.run_dir)
+def load_run(run_dir: Path, which: str, dataset_dir, device):
+    """What the validation scripts read from a saved run: its configs (the
+    classes filter as a set), its dataset directory (``dataset_dir``, else
+    the recorded one), the ``which`` ("best" or "last") checkpoint file,
+    the datasets, and a fresh model of the config on ``device``."""
     train_config, model_config = config_from_file(run_dir / "config.json")
     if isinstance(getattr(train_config, "filter_classes", None), list):
         train_config.filter_classes = set(train_config.filter_classes)
-    dataset_dir = args.dataset_dir or getattr(train_config, "dataset_dir", None)
+    dataset_dir = dataset_dir or getattr(train_config, "dataset_dir", None)
     if dataset_dir is None:
         raise SystemExit(
             "--dataset-dir is required: this run's config.json predates the "
             "recorded dataset_dir field"
         )
-    path = ckpt.model_file(run_dir, best=args.ckpt == "best")
+    path = ckpt.model_file(run_dir, best=which == "best")
     if path is None:
-        raise FileNotFoundError(f"{run_dir} holds no {args.ckpt} checkpoint (.pt or .msgpack)")
-    device = resolve_device(device)
+        raise FileNotFoundError(f"{run_dir} holds no {which} checkpoint (.pt or .msgpack)")
     train_ds, test_ds = build_both_datasets(train_config, model_config, dataset_dir)
     model = GPT.from_config(model_config, get_actions_info(train_config), device=device)
+    return train_config, dataset_dir, path, train_ds, test_ds, model
+
+
+def main(argv=None, device=None) -> dict:
+    """Validate; returns the printed metrics."""
+    args = get_args(argv)
+    run_dir = Path(args.run_dir)
+    device = resolve_device(device)
+    train_config, _, path, train_ds, test_ds, model = load_run(run_dir, args.ckpt,
+                                                               args.dataset_dir, device)
     if train_config.training_mode == "reinforce":
         from ..train.reinforce import ReinforceTrainer as TrainerClass
     else:

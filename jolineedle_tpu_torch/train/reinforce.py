@@ -294,11 +294,30 @@ class ReinforceTrainer(Trainer):
                 pool = None
         return pool
 
-    def after_step(self, it: int, metrics) -> None:
+    def steps_per_dispatch(self) -> int:
+        """As the base, and with ``--reward-norm`` it must also divide
+        ``--gradient-accumulation`` (``reinforce.py:399-411``): the return
+        statistics then change only between chunks, as at N = 1."""
+        cfg = self.config
+        spd = max(1, int(getattr(cfg, "steps_per_dispatch", 1)))
+        if spd > 1 and (cfg.test_every % spd
+                        or (cfg.reward_norm and cfg.gradient_accumulation % spd)):
+            raise ValueError(
+                f"--steps-per-dispatch {spd} must divide --test-every {cfg.test_every} and"
+                f" (with reward normalization) --gradient-accumulation"
+                f" {cfg.gradient_accumulation}")
+        return spd
+
+    def after_chunk(self, it: int, chunk_metrics) -> None:
+        """The chunk's summed return statistics join the window once
+        (``reinforce.py:488-495``; float64 sums, so that the window equals
+        N = 1's per-iteration entries); the statistics update at the end of
+        each accumulation window."""
         cfg = self.config
         if cfg.reward_norm:
-            self._window_stats.append(
-                (metrics["ret_sum"], metrics["ret_sumsq"], metrics["ret_count"]))
+            self._window_stats.append(tuple(
+                sum(m[k].double() for m in chunk_metrics)
+                for k in ("ret_sum", "ret_sumsq", "ret_count")))
             if it % cfg.gradient_accumulation == 0:
                 self._update_return_stats()
 

@@ -41,8 +41,8 @@ worst-images pass runs without the JAX trainer's ``try/except`` around it
 there fails the test. It ranks the images by ``Trainer.worst_ids``, which
 averages a per-episode criterion over each image's starts.
 
-Not ported: ``_build_multi_train_step`` (``--steps-per-dispatch > 1``, a
-TPU dispatch workaround, which ``main.py`` refuses).
+``--steps-per-dispatch`` N > 1 (``_build_multi_train_step``, N steps in one
+scan) is ``Trainer.train_loop``'s chunks: a loop over the chunk's steps.
 """
 
 from __future__ import annotations
@@ -223,7 +223,7 @@ class SupervisedTrainer(Trainer):
     # --- train loop (reference: src/supervised.py:812-911) ----------------------
     def train_iterations(self):
         """``max_iters - 1`` iterations, as the JAX loop runs
-        (``supervised.py:343``)."""
+        (``supervised.py:343``, ``:360``)."""
         return range(1, self.config.max_iters)
 
     def build_batch(self, indices, seed: int) -> Dict[str, np.ndarray]:

@@ -189,20 +189,34 @@ class Trainer:
         ``seed`` (each trainer assembles its own)."""
         raise NotImplementedError
 
-    def after_step(self, it: int, metrics) -> None:
-        """Bookkeeping after iteration ``it`` (the REINFORCE return window)."""
+    def steps_per_dispatch(self) -> int:
+        """``--steps-per-dispatch``: the train iterations of one chunk.
+        Raises, as ``supervised.py:277-286`` does, unless it divides
+        ``--test-every``, so that every test falls on a chunk's end."""
+        cfg = self.config
+        spd = max(1, int(getattr(cfg, "steps_per_dispatch", 1)))
+        if spd > 1 and cfg.test_every % spd:
+            raise ValueError(f"--steps-per-dispatch {spd} must divide --test-every {cfg.test_every}")
+        return spd
 
-    def train_batches(self) -> Prefetcher:
-        """The train batches, built ahead on the prefetcher's threads: the
-        global batch of ``batch_size × W`` indices that every rank picks
-        alike, built from its seed, cut to this rank's rows."""
+    def after_chunk(self, it: int, chunk_metrics) -> None:
+        """Bookkeeping after the chunk that ends at iteration ``it``, given
+        the metrics of its iterations (the REINFORCE return window)."""
+
+    def train_batches(self, spd: int = 1) -> Prefetcher:
+        """The train chunks, built ahead on the prefetcher's threads: each
+        is a list of ``spd`` host batches. Batch k of a chunk is the k-th of
+        its ``spd`` picks: the global batch of ``batch_size × W`` indices
+        that every rank picks alike, built from its seed (the chunk's first
+        seed + k, as ``supervised.py:304-331`` builds it), cut to this
+        rank's rows. So the batches are those of ``spd`` = 1, in order."""
         cfg = self.config
         order_rng = np.random.default_rng(cfg.seed)
         global_batch = cfg.batch_size * self.world.size
         index_pool = []
         batch_counter = [0]
 
-        def pick_work():
+        def pick_one():
             # Serialized by the prefetcher: draws the sample indices and a
             # per-batch rng seed so workers never share rng state.
             nonlocal index_pool
@@ -212,30 +226,55 @@ class Trainer:
             batch_counter[0] += 1
             return indices, cfg.seed + 1 + batch_counter[0]
 
-        return Prefetcher(lambda work: self.world.local_batch(self.build_batch(*work)),
-                          n_prefetch=2, num_workers=cfg.num_workers, pick_work=pick_work)
+        def pick_work():
+            drawn = [pick_one() for _ in range(spd)]
+            return [i for ids, _ in drawn for i in ids], drawn[0][1]
+
+        def make_chunk(work):
+            indices, seed = work
+            return [self.world.local_batch(self.build_batch(
+                indices[k * global_batch:(k + 1) * global_batch], seed + k)) for k in range(spd)]
+
+        return Prefetcher(make_chunk, n_prefetch=2, num_workers=cfg.num_workers,
+                          pick_work=pick_work)
 
     def train_loop(self, iterations, hook=None) -> None:
-        """Train ``iterations`` (their numbers, from 1), with a test on rank
-        0 every ``--test-every``; ``hook(it, metrics)`` after each."""
+        """Train ``iterations`` (consecutive numbers, from 1) in chunks of
+        ``--steps-per-dispatch`` (the last may be shorter), with a test on
+        rank 0 every ``--test-every``; ``hook(it, metrics)`` after each
+        iteration, after its chunk's bookkeeping where it ends one.
+
+        A chunk is the JAX package's one dispatch of N scanned steps
+        (``supervised.py:360-384``, ``reinforce.py:457-500``), here a loop
+        over its steps: they draw from the one generator as N = 1 does, so
+        a run equals the N = 1 run. What the chunk changes is when the
+        host looks: ``last_train_metrics``, the printed loss, the REINFORCE
+        window and the tests follow the chunks' ends."""
         cfg = self.config
         if self.logger is not None:
             self.logger.log_start(self.model)
         self.pool = self.train_pool()
-        prefetcher = self.train_batches()
+        spd = self.steps_per_dispatch()
+        iterations = list(iterations)
+        prefetcher = self.train_batches(spd)
         try:
-            for it in iterations:
-                self.iter_num = it
-                self.maybe_profile(it)
-                metrics = self.train_step(next(prefetcher))
-                self.last_train_metrics = metrics
-                self.loss_history.append(metrics["loss"])
-                if it % self.PRINT_EVERY == 0 and self.world.is_main:
-                    print(f"iter {it}: loss {float(metrics['loss']):.4f}", flush=True)
-                self.after_step(it, metrics)
-                if hook is not None:
-                    hook(it, metrics)
-                if it % cfg.test_every == 0:
+            for dispatch, first in enumerate(range(0, len(iterations), spd), start=1):
+                self.maybe_profile(dispatch)
+                chunk = iterations[first:first + spd]
+                done = []
+                for it, batch in zip(chunk, next(prefetcher)):
+                    self.iter_num = it
+                    metrics = self.train_step(batch)
+                    self.loss_history.append(metrics["loss"])
+                    done.append(metrics)
+                    if it == chunk[-1]:
+                        self.last_train_metrics = metrics
+                        if it % self.PRINT_EVERY == 0 and self.world.is_main:
+                            print(f"iter {it}: loss {float(metrics['loss']):.4f}", flush=True)
+                        self.after_chunk(it, done)
+                    if hook is not None:
+                        hook(it, metrics)
+                if chunk[-1] % cfg.test_every == 0:
                     self.test_on_main()
         finally:
             prefetcher.close()
@@ -489,9 +528,9 @@ class Trainer:
 
     # --- profiling ------------------------------------------------------------
     def maybe_profile(self, iter_num: int):
-        """With ``--profile-dir``, trace train iterations 2-6 with
-        ``torch.profiler`` into a Chrome trace there (rank 0's);
-        ``iter_num=-1`` stops early."""
+        """With ``--profile-dir``, trace train dispatches 2-6 (the
+        iterations 2-6 at ``--steps-per-dispatch`` 1) with ``torch.profiler``
+        into a Chrome trace there (rank 0's); ``iter_num=-1`` stops early."""
         profile_dir = getattr(self.config, "profile_dir", "")
         if not profile_dir or not self.world.is_main:
             return

@@ -22,7 +22,9 @@ this file would import JAX. One PyTorch thread per rank.
   the geometric and photometric augmentations, dropout in the supervised
   mode, accumulation 2, 4 iterations: losses, weights, BN statistics, each
   kernel wrapper's calls per iteration, and every rank's full state
-  bit-equal to rank 0's after every iteration;
+  bit-equal to rank 0's after every iteration; the same at W = 4 x B / 2
+  against that W = 1 run (each rank's rows interleave with three peers'
+  in the global batch, and the BN sums and counts add four terms);
 - the train CLI with ``--devices 0 1`` in each mode: it trains, tests and
   writes the files of a one-device run, once; a resume at W = 2 from a
   checkpoint taken inside an accumulation window continues as the resume of
@@ -419,6 +421,35 @@ def test_two_ranks_take_the_steps_of_one_at_the_global_batch(mode, step_runs):
     assert all(c["gradients"] == 1 and c["metrics"] == 1 and c["bn"] > 50 for c in steps)
     assert all(c["count"] == 2 for c in steps)  # the loss's denominator, num_fg
     assert not one["collectives"][0]
+
+
+@pytest.fixture(scope="module")
+def four_rank_runs(toy, tmp_path_factory):
+    """Both modes' runs at W = 4 x 1 row, in one launch of four ranks: the
+    global batch of ``step_runs``' W = 1 run, which is not repeated."""
+    root = tmp_path_factory.mktemp("steps4")
+    jobs = [{"flags": _train_flags(m, toy, root / "four", 1), "iters": STEP_ITERS}
+            for m in STEP_MODES]
+    four = mesh.launch(ranks.train_rank_steps, (jobs,), ["cpu"] * 4, rendezvous_dir=root)
+    return {m: [r[i] for r in four] for i, m in enumerate(STEP_MODES)}
+
+
+@pytest.mark.parametrize("mode", STEP_MODES)
+def test_four_ranks_take_the_steps_of_one_at_the_global_batch(mode, step_runs, four_rank_runs):
+    one, _ = step_runs[mode]
+    rs = four_rank_runs[mode]
+    # the W = 2 case's checks and tolerances, with three peers to each rank
+    misses, numbers = ranks.compare_runs(one, rs, 2, _lr_of, after_rtol=1e-3)
+    assert not misses, (misses, numbers)
+    assert len(set(rs[0]["digests"])) == STEP_ITERS
+    assert all(r["losses"] == rs[0]["losses"] and r["metrics"] == rs[0]["metrics"] for r in rs)
+    for key in one["metrics"][0]:
+        np.testing.assert_allclose([m[key] for m in rs[0]["metrics"][:2]],
+                                   [m[key] for m in one["metrics"][:2]],
+                                   rtol=1e-4, atol=1e-6, err_msg=key)
+    steps = rs[0]["collectives"]
+    assert all(c["gradients"] == 1 and c["metrics"] == 1 and c["bn"] > 50 for c in steps)
+    assert all(c["count"] == 2 for c in steps)
 
 
 # --- the CLI -----------------------------------------------------------------------------------

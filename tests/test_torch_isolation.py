@@ -60,7 +60,9 @@ def test_every_module_imports_without_jax():
     import, and none of them (nor a submodule) is loaded after."""
     for name in ("ops.conv", "ops.attention", "main", "scripts.smoke_conv",
                  "train.reinforce", "checkpoint", "models.port",
-                 "scripts.port_yolox_weights", "data.device_pool"):
+                 "scripts.port_yolox_weights", "data.device_pool",
+                 "scripts.eval_oracle_ceiling", "scripts.make_toyds_big", "scripts.load_visdom",
+                 "scripts.prepare", "scripts.dump_metric_curves"):
         assert f"jolineedle_tpu_torch.{name}" in PORT_MODULES
     code = (
         "import importlib, importlib.util, sys\n"

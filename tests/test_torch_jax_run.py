@@ -26,7 +26,11 @@ does, and leaves ``config.json`` and flax msgpack checkpoints. Then:
   every ``FULL-TEST`` metric within ``EVAL_TOL``, the directory left as it
   was; also on the weights as a REINFORCE run with ``--no-merge-bboxes``
   (the starts and detector batches, which each package draws from its own
-  generator, replayed from JAX's).
+  generator, replayed from JAX's);
+- the port's ``scripts/eval_oracle_ceiling.py`` measures the directory's
+  task ceiling as the JAX package's script does in this process: the same
+  oracle trajectories and every ``ORACLE-CEILING`` value within
+  ``EVAL_TOL``, the directory left as it was.
 """
 
 import numpy as np
@@ -401,3 +405,98 @@ def test_eval_checkpoint_override_on_a_reinforce_run_matches_jax(jax_run, tmp_pa
     _assert_same_trajectories(port_rollouts, jax_rollouts)
     _assert_metrics_match_jax(got, want)
     replay_jax(merge=True)  # without the override, the test merges as the run did
+
+
+def _jax_oracle_ceiling(run_dir, which, work_dir, dataset_dir):
+    """What the JAX package's ``scripts/eval_oracle_ceiling.py`` does, in
+    this process, with the trainer's work dir under ``work_dir`` in place of
+    the script's fixed one: the numbers it prints, and the visited
+    positions of each episode."""
+    import main as jax_main
+    from jolineedle_tpu.config import config_from_file
+    from jolineedle_tpu.env.oracle import OracleEnv
+    from jolineedle_tpu.parallel.mesh import replicate
+    from jolineedle_tpu.train.supervised import SupervisedTrainer as JaxSupervised
+
+    train_config, model_config = config_from_file(run_dir / "config.json")
+    train_ds, test_ds = jax_main.build_both_datasets(train_config, model_config, dataset_dir)
+    model = JaxGPT.from_config(model_config, get_actions_info(train_config))
+    train_config.work_dir = str(work_dir)
+    train_config.env_name = run_dir.name + "_oracle"
+    trainer = JaxSupervised(train_config, model, None, train_ds, test_ds)
+    name = jckpt.CKPT_BEST if which == "best" else jckpt.CKPT_LAST
+    trainer.state = replicate(trainer.mesh,
+                              jckpt.load_params_only(run_dir / name, trainer.state))
+    cfg = trainer.config
+    T = cfg.test_max_seq_len
+    n_actions = get_actions_info(train_config)[0].nclasses
+    episodes = []
+    for loop_id in range(len(test_ds)):
+        item = test_ds.__getitem__(loop_id, np.random.default_rng(loop_id))
+        boxes = np.asarray(item["bboxes"], np.float64).reshape(-1, 4)
+        env = OracleEnv(item["image"].shape[:2], cfg.patch_size, boxes,
+                        np.random.default_rng(loop_id))
+        env.reset(None)
+        start = env.position
+        acts = []
+        for _ in range(T - 1):
+            a = JaxSupervised.optimal_next_action(env)
+            acts.append(a.value)
+            env.step(a)
+        fake_rollout = {"actions": np.array(acts, np.int32)[None],
+                        "logits": np.zeros((1, T - 1, n_actions), np.float32),
+                        "logit_masks": np.ones((1, T - 1), np.float32)}
+        env.reset(start)
+        episodes.append((env, trainer._replay_episode(item, env, fake_rollout, T)))
+    dets = trainer._batched_patch_detections([rep["det_request"] for _, rep in episodes])
+    maps, props, stopped, ep_len = [], [], [], []
+    for (env, rep), det in zip(episodes, dets):
+        sample, metrics, bboxes = trainer._finish_episode(rep, det)
+        maps.append(trainer._per_patch_map(env, [sample], [bboxes])["map"])
+        props.append(metrics["prop_patches_found"])
+        stopped.append(metrics["stopped_inside_bbox"])
+        ep_len.append(metrics["episode_length"])
+    return {"n_images": len(episodes), "ep_len": float(np.mean(ep_len)),
+            "map": float(np.mean(maps)), "prop_patches_found": float(np.mean(props)),
+            "stopped_inside_bbox": float(np.mean(stopped)), "dataset_dir": str(dataset_dir),
+            "ckpt": which}, [rep["visited"] for _, rep in episodes]
+
+
+def test_oracle_ceiling_measures_the_jax_run_as_jax_does(jax_run, tmp_path, monkeypatch,
+                                                         capsys):
+    import json
+
+    from jolineedle_tpu_torch.scripts import eval_oracle_ceiling
+    from jolineedle_tpu_torch.train.supervised import SupervisedTrainer
+
+    run_dir = jax_run["run_dir"]
+    before = {p.name: (p.stat().st_size, p.stat().st_mtime_ns) for p in run_dir.iterdir()}
+    visited = []
+    replay = SupervisedTrainer._replay_episode
+
+    def recorded(self, *args):
+        rep = replay(self, *args)
+        visited.append(rep["visited"])
+        return rep
+
+    monkeypatch.setattr(SupervisedTrainer, "_replay_episode", recorded)
+    capsys.readouterr()
+    got = eval_oracle_ceiling.main([str(run_dir), "--dataset-dir", str(jax_run["toy"])],
+                                   device="cpu")
+    out = capsys.readouterr().out
+    line = [l for l in out.splitlines() if l.startswith("ORACLE-CEILING: ")]
+    assert len(line) == 1 and json.loads(line[0][len("ORACLE-CEILING: "):]) == got
+    assert f"loading {run_dir / jckpt.CKPT_BEST}" in out
+    want, want_visited = _jax_oracle_ceiling(run_dir, "best", tmp_path, jax_run["toy"])
+    assert got.keys() == want.keys()
+    assert (got["n_images"], got["ep_len"], got["dataset_dir"], got["ckpt"]) == (
+        want["n_images"], want["ep_len"], want["dataset_dir"], want["ckpt"]) == (
+        2, float(T), str(jax_run["toy"]), "best")
+    assert len(visited) == len(want_visited) == 2
+    for a, b in zip(visited, want_visited):
+        np.testing.assert_array_equal(a, b)
+    for name in ("map", "prop_patches_found", "stopped_inside_bbox"):
+        np.testing.assert_allclose(got[name], want[name], rtol=EVAL_TOL, atol=EVAL_TOL,
+                                   err_msg=name)
+    assert got["prop_patches_found"] > 0  # the oracle walks onto the boxes
+    assert {p.name: (p.stat().st_size, p.stat().st_mtime_ns) for p in run_dir.iterdir()} == before
