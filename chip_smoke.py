@@ -169,15 +169,30 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
 16. pyramid: ``NeedleEnv`` with 2 and 3 glimpse levels on float32 images of
    2688 px (B = 4, 448 px patches) on the card against the CPU: the
    pyramid, ``reset``, 20 ``step``s and ``get_patches`` within 1e-5; the
-   pyramid build timed (median of 20 event pairs).
+   pyramid build timed (median of 20 event pairs);
+17. bench: ``python -m jolineedle_tpu_torch.bench``'s ``run`` in-process
+   on the card at its full config (B = 128, grid 6, 448 px, 20 steps, bf16,
+   and the yolox-s secondary) with ``BENCH_ITERS=5``, ``BENCH_REPEATS=3``,
+   ``BENCH_SECONDARY_ITERS=2``, ``BENCH_BASELINE_MIN_S=0`` and its first
+   nano pass profiled: its JSON line printed, every key of bench.py's line
+   present, 0.974 GFLOP an env step, ``mfu_pct`` in (0, 100], and each timed
+   rollout's launches exact (nano: 240 ``dwblock_bn_silu`` and 20
+   ``conv3x3_bn_silu``; yolox-s: 20 x the stride-1 dense 3x3s of its
+   backbone and PAFPN; no flash), each baseline iteration's flash launches
+   ``steps x 3``; then ``bench_rollout_parts``, ``bench_attention``,
+   ``bench_embedder_stages`` (nano and yolox-s), ``bench_pallas_embedder``
+   at fewer reps and ``analyze_trace`` on the profiled pass, each of which
+   must return.
 
 Phase 3 also holds the flash-attention kernel against its plain versions
 (output, log-sum-exp and gradients) at the decoder's shape [16, 3, 21, 16]
 on the model's strided views of its c_attn output, a ragged multi-tile [2,
 4, 200, 64] and the long-T [128, 4, 128, 64], and at the full-prefix
 rollout's [4, 3, 21, 16] in float32 and [1, 3, 21, 16] in bfloat16 on the
-model's views (phase 7's shapes), times each as the wrapper's
-whole call (per launch and back to back), and checks under
+model's views (phase 7's shapes), and at head dim 128 (``FLASH_D128_SHAPES``:
+[16, 3, 21, 128] in the short regime, [2, 2, 256, 128], [128, 4, 128, 128],
+[8, 8, 1024, 128] and [4, 16, 4096, 128]) in both dtypes, times each as the
+wrapper's whole call (per launch and back to back), and checks under
 ``torch.profiler`` that one call on the model's views is one device
 operation; it holds the plain 3x3 conv kernel at the smoke script's
 default and at the nano stem, and ``conv3x3_bn_silu`` at every dense
@@ -211,6 +226,7 @@ import time
 from collections import Counter, defaultdict
 from pathlib import Path
 from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import torch
@@ -269,6 +285,12 @@ SUP_EMBED_N, SUP_DET_N = TRAIN_B * STEPS, EVAL_DET_ROWS * STEPS
 # of its c_attn output), a ragged multi-tile one and the needle-scale long-T
 # row of the JAX package's sweep (scripts/bench_attention.py:75).
 FLASH_SHAPES = [(TRAIN_B, 3, STEPS + 1, 16), (2, 4, 200, 64), (128, 4, 128, 64)]
+# Flash attention at head dim 128, the D of the JAX package's attention sweep
+# (scripts/bench_attention.py:70-80, which the port's bench_attention runs):
+# the decoder's short T, the sweep's small shape, two of its rows and its
+# longest, contiguous, in both dtypes. Off every model path of the repo.
+FLASH_D128_SHAPES = [(TRAIN_B, 3, STEPS + 1, 128), (2, 2, 256, 128), (128, 4, 128, 128),
+                     (8, 8, 1024, 128), (4, 16, 4096, 128)]
 # The full-prefix rollout (phase 7) at B = FULL_PREFIX_B in float32 and the
 # B = 1 request in bfloat16: each step embeds B x STEPS patches and runs
 # flash at [B, 3, STEPS + 1, 16] on the model's c_attn views.
@@ -377,13 +399,14 @@ def path_shapes(model) -> dict:
     return out
 
 
-def dense_conv_shapes(variant: str) -> Counter:
+def dense_conv_shapes(variant: str, embedder: bool = False) -> Counter:
     """Counter((H, W, C, K)): the ``conv3x3_bn_silu`` launches of one
-    forward of a ``variant`` detector on a 448 px patch, read from its
-    module tree (every dense stride-1 3x3 ``ConvBnAct``)."""
+    forward of a ``variant`` detector on a 448 px patch (with ``embedder``:
+    of its backbone and PAFPN alone, what one embedder call runs), read
+    from its module tree (every dense stride-1 3x3 ``ConvBnAct``)."""
     from jolineedle_tpu_torch.models.yolox import ConvBnAct, NeedleYOLOX
 
-    model = NeedleYOLOX(variant, device="cuda").eval()
+    model = NeedleYOLOX(variant, device=DEVICE).eval()
     seen = Counter()
 
     def record(module, inputs, output):
@@ -394,7 +417,8 @@ def dense_conv_shapes(variant: str) -> Counter:
         if isinstance(m, ConvBnAct) and m.uses_conv3x3_kernel:
             m.register_forward_hook(record)
     with torch.no_grad():
-        model(torch.zeros((1, 3, PATCH, PATCH), device="cuda"))
+        x = torch.zeros((1, 3, PATCH, PATCH), device=DEVICE)
+        model.backbone(x) if embedder else model(x)
     return seen
 
 
@@ -652,11 +676,14 @@ def wide_variant_phase(kconv, seed):
 
 def new_kernel_phase(port, seed):
     """The flash kernel and the plain 3x3 conv at their shapes, both dtypes;
-    flash also at the full-prefix rollout's shapes, each in its own dtype."""
+    flash also at the full-prefix rollout's shapes, each in its own dtype,
+    and at head dim 128 (``FLASH_D128_SHAPES``) in both."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     runs = [(shape, dtype, shape == FLASH_SHAPES[0]) for shape in FLASH_SHAPES
             for dtype in (torch.float32, torch.bfloat16)]
     runs += [((b, 3, STEPS + 1, 16), dtype, True) for b, dtype in FULL_PREFIX_RUNS]
+    runs += [(shape, dtype, False) for shape in FLASH_D128_SHAPES
+             for dtype in (torch.float32, torch.bfloat16)]
     rows = []
     for shape, dtype, views in runs:
         r = measure_flash(port.kattn, shape, dtype, gen, model_views=views)
@@ -2626,6 +2653,95 @@ def pyramid_phase(seed):
         del envs
 
 
+# The bench (phase 17): python -m jolineedle_tpu_torch.bench at its full
+# config with fewer iterations, its first timed pass profiled; the part
+# benches at fewer reps.
+BENCH_ENV = {"BENCH_ITERS": "5", "BENCH_REPEATS": "3", "BENCH_SECONDARY_ITERS": "2",
+             "BENCH_BASELINE_MIN_S": "0"}
+# The keys of bench.py's JSON line (bench.py:420-486) and of its secondary block.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "passes", "spread_pct",
+              "gflops_per_env_step", "tflops_per_sec", "peak_tflops_measured", "mfu_pct",
+              "baseline_env_steps_per_sec", "baseline_window_s", "secondary")
+BENCH_SECONDARY_KEYS = ("metric", "value", "passes", "gflops_per_env_step", "tflops_per_sec",
+                        "mfu_pct")
+# bench.py's nano pairing: 0.974 GFLOP an env step (the JAX package's
+# traced_flops of its rollout, 19,488,468,768 at B = 1 over 20 steps).
+BENCH_GFLOPS_PER_ENV_STEP = 0.974
+PARTS_ITERS, ATTN_ITERS, STAGE_REPS = "10", "5", "5"
+
+
+def bench_phase(port):
+    """``bench.run`` in-process at the full config (``BENCH_ENV``), its line
+    checked against bench.py's keys, its FLOPs and MFU, and the launches of
+    every timed part; then each part bench once at fewer reps, and
+    ``analyze_trace`` on the bench's profiled pass. Returns the launches of
+    the bench's run (warm-ups included; the part benches' aside)."""
+    from jolineedle_tpu_torch import bench
+    from jolineedle_tpu_torch.scripts import (analyze_trace, bench_attention,
+                                              bench_embedder_stages, bench_pallas_embedder,
+                                              bench_rollout_parts)
+
+    start = time.perf_counter()
+    profile_dir = ROOT / "build" / "chip_smoke" / "bench_profile"
+    shutil.rmtree(profile_dir, ignore_errors=True)
+    reset_launches(port)
+    result = bench.run(small=False, device=DEVICE,
+                       env={**BENCH_ENV, "BENCH_PROFILE_DIR": str(profile_dir)})
+    launches = Counter(read_launches(port))
+    print(json.dumps(result), flush=True)
+    say(f"bench: python -m jolineedle_tpu_torch.bench at {BENCH_ENV} (first nano pass"
+        f" profiled) in {time.perf_counter() - start:.1f} s on {result['device']}")
+    missing = [k for k in BENCH_KEYS if k not in result]
+    missing += [f"secondary.{k}" for k in BENCH_SECONDARY_KEYS
+                if k not in result.get("secondary", {})]
+    require(not missing, f"bench: the line lacks {missing}")
+    require(result["gflops_per_env_step"] == BENCH_GFLOPS_PER_ENV_STEP,
+            f"bench: {result['gflops_per_env_step']} GFLOP an env step, not"
+            f" {BENCH_GFLOPS_PER_ENV_STEP}")
+    for line in (result, result["secondary"]):
+        require(0 < line["mfu_pct"] <= 100, f"bench: mfu_pct {line['mfu_pct']}")
+
+    counts = result["kernel_counts"]
+    s_convs = sum(dense_conv_shapes("yolox-s", embedder=True).values())
+    per_embed = EXPECTED_PER_CALL["embedder"]
+    for part, per, want in (
+            ("rollout", "rollouts", {**{k: STEPS * n for k, n in per_embed.items()},
+                                     "flash_attention": 0}),
+            ("secondary", "rollouts", {"dwblock_bn_silu": 0, "conv3x3_bn_silu": STEPS * s_convs,
+                                       "flash_attention": 0}),
+            ("baseline", "iterations", {"flash_attention": counts["baseline"]["steps"] * N_LAYER})):
+        got = counts[part]
+        for name, n in want.items():
+            require(got[name] == got[per] * n, f"bench {part}: {got[name]} {name} launches over"
+                    f" {got[per]} {per}, not {n} each")
+        say(f"bench {part}: launches {got} (exactly {want} each of {got[per]} {per})")
+
+    with mock.patch.dict(os.environ, BENCH_PARTS_ITERS=PARTS_ITERS, BENCH_ATTN_ITERS=ATTN_ITERS):
+        for what, call in (
+                ("bench_rollout_parts", lambda: bench_rollout_parts.main([], device=DEVICE)),
+                ("bench_attention", lambda: bench_attention.main([], device=DEVICE)),
+                ("bench_embedder_stages", lambda: bench_embedder_stages.main(
+                    ["--reps", STAGE_REPS], device=DEVICE)),
+                ("bench_embedder_stages yolox-s", lambda: bench_embedder_stages.main(
+                    ["--reps", STAGE_REPS, "--variant", "yolox-s"], device=DEVICE)),
+                ("bench_pallas_embedder", lambda: bench_pallas_embedder.main(
+                    ["--iters", STAGE_REPS], device=DEVICE)),
+                ("analyze_trace", lambda: analyze_trace.main([str(profile_dir)]))):
+            t0 = time.perf_counter()
+            out = call()
+            if what == "analyze_trace":
+                require(out["by_class"].get("port kernels", 0) > 0,
+                        "analyze_trace: no port kernel in the profiled pass")
+                say(f"analyze_trace: the profiled nano pass (1 of 3, {BENCH_ENV['BENCH_ITERS']}"
+                    f" rollouts): device busy {out['busy_pct']:.1f} % of"
+                    f" {out['window_ms']:.1f} ms; by class (ms) "
+                    + json.dumps({k: round(v, 3) for k, v in out["by_class"].items()}))
+            say(f"{what}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    say(f"bench: the phase took {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def import_port():
     """The port's modules this script drives. In a directory that holds
     this script and nothing else of the repo, this raises ImportError."""
@@ -2732,6 +2848,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path["oracle"] = oracle_phase(port, sup_run[0])
     pyramid_phase(args.seed)
+    torch.cuda.empty_cache()
+    by_path["bench"] = bench_phase(port)
     launches = sum(by_path.values(), Counter())
     for name in KERNEL_NAMES:
         require(launches[name] > 0, f"{name} was launched no time on its path")

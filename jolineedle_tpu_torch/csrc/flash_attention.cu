@@ -7,8 +7,9 @@
 // with K and V whole in VMEM, an online softmax over k blocks in float32,
 // k blocks above the diagonal skipped, -1e30 on masked scores, and the
 // output rounded once to q's dtype. The TPU kernel asserts T % block == 0;
-// this one takes any T and D in {16, 32, 64} (the head dims of gpt-pico ...
-// gpt2).
+// this one takes any T and D in {16, 32, 64, 128} (the head dims of gpt-pico
+// ... gpt2, and the D = 128 of the JAX package's attention sweep,
+// scripts/bench_attention.py).
 //
 // What bounds it, and what the design does about it:
 //
@@ -53,9 +54,17 @@
 //     diagonal tile is masked (key > row -> -1e30), keys at or past T are
 //     zero-filled (cp.async src-size 0), so V's pad rows are 0, never NaN.
 //     No row at or past T is stored.
+//   - float32 at D = 128: the split q fragments alone would take 128
+//     registers a thread beside the 64 of the output accumulator, the 64
+//     of the fresh PV accumulator and the 32 of S, past the 255 a thread
+//     may hold. So that instantiation keeps no q fragment: each key tile
+//     rereads the warp's q rows from shared memory (where they stay until
+//     the output is staged over them), one 8-dim step at a time, and
+//     splits them again. bf16 at D = 128 holds its 32 registers of q.
 //   - Shared memory rows are skewed by 16 bytes, so ldmatrix's 8 rows (and
 //     the float32 path's scalar reads) hit distinct banks. The tiles are
-//     dynamic shared memory (float32 D = 64 at long T is 87 KB).
+//     dynamic shared memory (float32 D = 64 at long T is 87 KB; float32
+//     D = 128 is 169 KB at long T, one block per SM, and 101 KB at short T).
 //
 // wgmma (a 64-row warpgroup tile) is not used: at T = 21 it would leave two
 // thirds of its rows idle.
@@ -104,8 +113,11 @@ struct Layout {
 template <typename T, int D>
 struct Rows {
   static constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  // float32 at D = 128 rereads q from shared memory instead of holding it.
+  static constexpr bool kQInSmem = !kBf16 && D > 64;
   // bf16: D/16 k16 fragments; float32: D/8 k8 fragments, big then small.
-  uint32_t qa[kBf16 ? D / 16 : D / 8][kBf16 ? 4 : 8];
+  uint32_t qa[kQInSmem ? 1 : (kBf16 ? D / 16 : D / 8)][kBf16 ? 4 : 8];
+  const T* qs;  // the warp's 16 q rows in shared memory
   float acc[D / 8][4];
   float m[2], l[2];
 };
@@ -125,11 +137,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <typename T, int D>
 __device__ __forceinline__ void load_q(Rows<T, D>& r, const T* qs, int lane) {
   constexpr int kPitch = Layout<T, D>::kPitch;
+  r.qs = qs;
   if constexpr (Rows<T, D>::kBf16) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)  // matrices (rows +0 / +8) x (dims +0 / +8)
       ldmatrix_x4(r.qa[kk], smem_u32(qs + (lane & 15) * kPitch + kk * 16 + (lane >> 4) * 8));
-  } else {
+  } else if constexpr (!Rows<T, D>::kQInSmem) {
     const int g = lane >> 2, t = lane & 3;
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
@@ -199,6 +212,29 @@ __device__ __forceinline__ void scores(float (&s)[kTile / 8][4], const Rows<T, D
                                 kk * 16 + ((lane >> 3) & 1) * 8));
         mma_bf16(s[2 * jj], r.qa[kk], b[0], b[1]);
         mma_bf16(s[2 * jj + 1], r.qa[kk], b[2], b[3]);
+      }
+    }
+  } else if constexpr (Rows<T, D>::kQInSmem) {
+    // Each 8-dim step's q fragment read and split once per key tile, then
+    // used for every key group: S's sums run in the same order as below.
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      uint32_t big[4], small[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split_tf32(r.qs[(g + (i & 1) * 8) * kPitch + kk * 8 + t + (i >> 1) * 4], big[i],
+                   small[i]);
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        if (j >= 2 * n16) break;
+        const float* row = ks + (j * 8 + g) * kPitch + kk * 8 + t;
+        uint32_t bb0, bs0, bb1, bs1;
+        split_tf32(row[0], bb0, bs0);
+        split_tf32(row[4], bb1, bs1);
+        mma_tf32(s[j], small, bb0, bb1);
+        mma_tf32(s[j], big, bs0, bs1);
+        mma_tf32(s[j], big, bb0, bb1);
       }
     }
   } else {
@@ -471,8 +507,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
 }
 
 // Per instantiation, once: the dynamic shared memory allowed up to what a
-// launch takes (above the 48 KB default for float32 at D = 64), and the
-// carveout.
+// launch takes (above the 48 KB default for float32 at D = 64 and for both
+// types at D = 128), and the carveout.
 template <typename T, int D, bool kShort>
 cudaError_t prepare() {
   static const cudaError_t err = [] {
@@ -507,6 +543,7 @@ cudaError_t launch_d(const Params& p, int D, int grid, cudaStream_t stream) {
     case 16: return launch<T, 16>(p, grid, stream);
     case 32: return launch<T, 32>(p, grid, stream);
     case 64: return launch<T, 64>(p, grid, stream);
+    case 128: return launch<T, 128>(p, grid, stream);
     default: return cudaErrorInvalidValue;
   }
 }

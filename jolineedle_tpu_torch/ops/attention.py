@@ -35,7 +35,7 @@ from .kernels import PLAIN_DEVICES, kernel
 
 NEG_INF = -1e30
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-KERNEL_HEAD_DIMS = (16, 32, 64)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 #: The kernel's blocks: 4 warps of 16 query rows; T up to SHORT_T takes the
 #: short regime (heads packed per block, whole K/V loaded once), longer T
 #: one 64-row q tile per block.
@@ -220,7 +220,7 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal softmax(QK^T / sqrt(D)) V over ``[B, H, T, D]``, any T, D in
-    {16, 32, 64}, float32 or bfloat16; differentiable.
+    {16, 32, 64, 128}, float32 or bfloat16; differentiable.
 
     Replaces ``jolineedle_tpu/ops/attention.py:101`` (Pallas, K and V whole
     in VMEM, T a multiple of the block). On a CPU or meta tensor it computes

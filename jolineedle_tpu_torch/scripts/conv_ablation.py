@@ -29,7 +29,6 @@ import argparse
 import ctypes
 import json
 import shutil
-import statistics
 import subprocess
 from pathlib import Path
 
@@ -37,9 +36,11 @@ import torch
 
 from ..ops import conv as kconv
 from ..ops.kernels import BUILD_DIR, CSRC, NVCC_FLAGS, SIGNATURES, _nvcc
+from ..utils.timing import back_to_back_ms, card, median_ms
 
 # The yolox-nano stem of a B=32 rollout step at 448 px: [B, H, W, C -> K].
 STEM = (32, 224, 224, 12, 16)
+REPS = 20  # event pairs per timing, their median taken
 _NO_MMA = ("const int ksteps = p.cc / MmaDepth<T>::value;", "const int ksteps = 0;")
 _NO_STORES = ("      auto store_pair = [](T* o, float v0, float v1) {",
               "      auto store_pair = [](T* o, float v0, float v1) {\n"
@@ -159,26 +160,6 @@ def _build(root: Path, edited: str, library: str, variants: dict) -> dict:
     return fns
 
 
-def _median_ms(fn, reps: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-              for _ in range(reps)]
-    torch.cuda._sleep(50_000_000)
-    for start, end in events:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
 def _bn(gen, n):
     return [torch.rand(n, generator=gen, device="cuda") + 0.5,
             torch.randn(n, generator=gen, device="cuda") * 0.1,
@@ -207,8 +188,8 @@ def tile_ablation(root: Path) -> dict:
             call()
             want = kconv.conv3x3_bn_silu_reference(x.float(), w, *bn)
             torch.testing.assert_close(out.float(), want, atol=3e-2, rtol=2e-2)
-        ms[name] = _median_ms(call)
-    return {"kernel": "conv3x3_tile", "card": _card(), "shape": list(STEM), "dtype": "bfloat16",
+        ms[name] = median_ms(call, REPS, "cuda")
+    return {"kernel": "conv3x3_tile", "card": card("cuda"), "shape": list(STEM), "dtype": "bfloat16",
             "ms": ms}
 
 
@@ -236,34 +217,15 @@ def dwblock_ablation(root: Path) -> dict:
                 call()
                 want = kconv.dwblock_bn_silu_reference(x.float(), *args)
                 torch.testing.assert_close(out.float(), want, atol=3e-2, rtol=2e-2)
-            ms[name].append(_median_ms(call))
-            b2b[name].append(_back_to_back_ms(call))
+            ms[name].append(median_ms(call, REPS, "cuda"))
+            b2b[name].append(back_to_back_ms(call))
     per_call = {name: sum(t * n for t, (_, n) in zip(v, DW_SHAPES)) for name, v in ms.items()}
-    return {"kernel": "dwblock_bn_silu", "card": _card(), "n": DW_N, "dtype": "bfloat16",
+    return {"kernel": "dwblock_bn_silu", "card": card("cuda"), "n": DW_N, "dtype": "bfloat16",
             "shapes": [[DW_N, *shape] for shape, _ in DW_SHAPES],
             "launches_per_detector_call": [n for _, n in DW_SHAPES], "ms": ms,
             "detector_call_ms": per_call, "back_to_back_ms": b2b,
             "back_to_back_detector_call_ms": {
                 name: sum(t * n for t, (_, n) in zip(v, DW_SHAPES)) for name, v in b2b.items()}}
-
-
-def _back_to_back_ms(fn, launches: int = 20, reps: int = 5) -> float:
-    """Device time per launch of ``launches`` queued back to back between
-    one pair of events (median of ``reps``): what a launch costs inside a
-    stream of kernels, without an event pair around each."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return statistics.median(times)
 
 
 def main(argv=None) -> list:

@@ -31,7 +31,8 @@ import torch
 
 from ..ops import attention as kattn
 from ..ops.kernels import BUILD_DIR
-from .conv_ablation import _back_to_back_ms, _build, _card, _median_ms
+from ..utils.timing import back_to_back_ms, card, median_ms
+from .conv_ablation import REPS, _build
 
 _ATTEND = ("  scores<T, D>(s, r, ks, n16, lane);\n"
            "  softmax_step<T, D>(s, r, n16, key0, q0, key0 + 16 * n16 - 1 > q0, scale_log2, lane);\n"
@@ -77,7 +78,7 @@ def _check(o, lse, q, k, v, what):
 
 
 def _times(call):
-    return {"ms": _median_ms(call), "back_to_back_ms": _back_to_back_ms(call)}
+    return {"ms": median_ms(call, REPS, "cuda"), "back_to_back_ms": back_to_back_ms(call)}
 
 
 def _call(fn, args, stream, name):
@@ -113,7 +114,7 @@ def main(argv=None) -> dict:
     root = BUILD_DIR.parent / "ablation" / "flash"
     shutil.rmtree(root, ignore_errors=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    out = {"kernel": "flash_attention", "card": _card(), "dtype": "bfloat16",
+    out = {"kernel": "flash_attention", "card": card("cuda"), "dtype": "bfloat16",
            "variants": variants(root, gen)}
     print(json.dumps(out), flush=True)
     return out

@@ -60,6 +60,40 @@ def count_flops(fn, *args) -> float:
     return float(counter.get_total_flops())
 
 
+def rollout_flops(model, batch_size: int, steps: int) -> float:
+    """2 x MACs of the matmuls and convolutions of one KV-cache rollout of
+    ``steps`` steps at ``batch_size``: what ``jolineedle_tpu.utils.flops.
+    traced_flops`` counts for ``Trainer._rollout_scan`` (the class token
+    into a fresh cache, then per step one patch embedded and one token
+    decoded against the whole cache; the env's gather and reward do no
+    matmul).
+
+    Counted on a ``meta`` copy of ``model`` at the rollout's per-step shapes:
+    a rollout itself cannot run there (sampling and the env step read the
+    data), and a kernel launched through ``ctypes`` is invisible to the
+    counter, so the count comes from the module tree, never from a run on
+    the card. As in :func:`measure_flops`, autograd is on, so every conv is
+    a PyTorch conv (the depthwise ones counted as convs, as JAX counts them)
+    and the decode's attention is its two einsums over the cache."""
+    m = meta_copy(model).eval()
+    P, nc = m.patch_size, m.n_channels
+    meta = dict(device="meta")
+    classes = torch.zeros((batch_size,), dtype=torch.long, **meta)
+    with torch.enable_grad():
+        cache = m.init_cache(classes)
+    patch = torch.zeros((batch_size, P, P, nc), **meta)
+    action = torch.zeros((batch_size,), dtype=torch.long, **meta)
+    position = torch.zeros((batch_size, 2), dtype=torch.long, **meta)
+
+    def step(t):
+        cache["index"] = t
+        return m.decode_step(cache, patch, action, position, t)
+
+    # Every step attends over the whole preallocated cache (the masked keys
+    # included, as the JAX decode does), so each step counts alike.
+    return count_flops(m.init_cache, classes) + sum(count_flops(step, t) for t in range(steps))
+
+
 def param_counts(model) -> dict:
     """Parameter counts as the JAX ``params`` tree groups them:
     ``backbone`` (yolox/backbone), ``head`` (yolox/head), ``yolox`` and

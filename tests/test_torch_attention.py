@@ -27,13 +27,23 @@ def _qkv(shape, seed, dtype=np.float32):
     return [rng.normal(size=shape).astype(dtype) for _ in range(3)]
 
 
-@pytest.mark.parametrize("block_q, block_k", [(128, 128), (128, 64), (64, 128)])
-def test_plain_matches_pallas_flash(block_q, block_k):
+# (block_q, block_k, shape): the Pallas kernel's tilings at D = 64 (ids as
+# before), then D = 128, the head dim of the JAX package's attention sweep
+# (scripts/bench_attention.py), at one and two 128-row blocks.
+PALLAS_CASES = [pytest.param(bq, bk, (1, 2, 128, 64), id=f"{bq}-{bk}")
+                for bq, bk in [(128, 128), (128, 64), (64, 128)]] + [
+    pytest.param(128, 128, (1, 2, 128, 128), id="128-128-D128"),
+    pytest.param(128, 128, (2, 2, 256, 128), id="128-128-T256-D128"),
+]
+
+
+@pytest.mark.parametrize("block_q, block_k, shape", PALLAS_CASES)
+def test_plain_matches_pallas_flash(block_q, block_k, shape):
     import jax.numpy as jnp
 
     from jolineedle_tpu.ops.attention import flash_attention as jax_flash
 
-    q, k, v = _qkv((1, 2, 128, 64), 0)
+    q, k, v = _qkv(shape, 0)
     want = np.asarray(jax_flash(*(jnp.asarray(a) for a in (q, k, v)),
                                 block_q=block_q, block_k=block_k, interpret=True))
     got = tattn.flash_attention_reference(*(torch.from_numpy(a) for a in (q, k, v)))
@@ -45,21 +55,25 @@ def test_plain_matches_pallas_flash(block_q, block_k):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("T", [21, 37])
-def test_plain_at_ragged_T_matches_jax_reference(T):
+@pytest.mark.parametrize("T, D, atol", [pytest.param(T, 16, 1e-6, id=str(T)) for T in (21, 37)]
+                         + [pytest.param(T, 128, 1e-5, id=f"{T}-D128") for T in (21, 37)])
+def test_plain_at_ragged_T_matches_jax_reference(T, D, atol):
     """T that no block divides: the Pallas kernel refuses it, the jnp
-    reference (what the JAX decoder runs) takes it."""
+    reference (what the JAX decoder runs) takes it. At D = 128 the scores are
+    128-term float32 sums, summed in another order by the two einsums (1.3e-6
+    seen): held at 1e-5, the D = 128 limit against the Pallas kernel."""
     import jax.numpy as jnp
 
     from jolineedle_tpu.ops.attention import causal_attention_reference as jax_ref
 
-    q, k, v = _qkv((2, 3, T, 16), T)
+    q, k, v = _qkv((2, 3, T, D), T)
     want = np.asarray(jax_ref(*(jnp.asarray(a) for a in (q, k, v))))
     got = tattn.flash_attention_reference(*(torch.from_numpy(a) for a in (q, k, v)))
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=0)
     o, lse = tattn.flash_attention_forward_reference(*(torch.from_numpy(a) for a in (q, k, v)))
-    np.testing.assert_allclose(o.numpy(), want, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(o.numpy(), want, atol=atol, rtol=0)
     assert lse.shape == (2, 3, T) and lse.dtype == torch.float32
+    assert D in tattn.KERNEL_HEAD_DIMS
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 21, 16), (1, 2, 70, 64)])
@@ -105,7 +119,7 @@ def test_non_cpu_tensor_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("T", [1, 21, 33])
-@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_plain_bf16_forward_matches_jax_reference(D, T):
     """The kernel's plain version in bfloat16 (probabilities rounded to bf16
     before the PV product) against the JAX oracle in bfloat16 on the same
@@ -277,10 +291,13 @@ LSE_TOL = (1e-4, 1e-4)
 # The decoder's shape (B=16, gpt-nano's 3 heads, T = 21, head dim 16), a
 # ragged multi-tile one, one of each head dim, the needle-scale long-T shape,
 # and T on both sides of each tile edge (16-row warps, the 64-row short/long
-# boundary) for each head dim.
+# boundary) for each head dim; at D = 128 also the attention sweep's smallest
+# and needle-scale rows (scripts/bench_attention.py), the decoder's T at that
+# D and a ragged long T (one block per SM in float32).
 GPU_SHAPES = [(16, 3, 21, 16), (2, 4, 200, 64), (1, 2, 64, 32), (3, 1, 1, 16), (1, 1, 129, 64),
-              (128, 4, 128, 64)] + [(2, 3, T, D) for D in (16, 32, 64)
-                                    for T in (16, 17, 33, 64, 65)]
+              (128, 4, 128, 64)] + [(2, 3, T, D) for D in (16, 32, 64, 128)
+                                    for T in (16, 17, 33, 64, 65)] + [
+    (2, 2, 256, 128), (128, 4, 128, 128), (16, 3, 21, 128), (1, 2, 200, 128)]
 
 
 def _check_kernel(qd, kd, vd, do, dtype):
@@ -322,6 +339,8 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     (16, 21, 3, 16, 1),   # 2-byte aligned (bf16 scalar copies, float32 4-byte)
     (2, 70, 4, 32, 2),    # long T, 4-byte aligned in bf16
     (2, 33, 2, 64, 4),    # 8-byte aligned in bf16
+    (2, 21, 2, 128, 0),   # D = 128, short T: 16-byte copies
+    (2, 70, 2, 128, 2),   # D = 128, long T, 4-byte aligned in bf16
 ])
 def test_kernel_reads_model_views(cuda, B, T, H, D, offset, dtype):
     """q, k, v as strided views of one [B, T, 3C] c_attn output (at a storage

@@ -20,6 +20,7 @@ import jolineedle_tpu_torch
 from jolineedle_tpu.config import args_to_config, get_args
 from jolineedle_tpu.env import get_actions_info
 from jolineedle_tpu.models.gpt import GPT as JaxGPT
+from jolineedle_tpu_torch import bench
 from jolineedle_tpu_torch import config as tconfig
 from jolineedle_tpu_torch.env.actions import get_actions_info as t_actions_info
 from jolineedle_tpu_torch.env.batched_env import NeedleEnv
@@ -28,6 +29,7 @@ from jolineedle_tpu_torch.main import main as train_main
 from jolineedle_tpu_torch.models.bridge import flax_to_torch, torch_to_flax
 from jolineedle_tpu_torch.models.gpt import GPT
 from jolineedle_tpu_torch.models.yolox import NeedleYOLOX
+from jolineedle_tpu_torch.scripts import bench_attention, bench_rollout_parts
 from jolineedle_tpu_torch.train.reinforce import ReinforceTrainer
 from jolineedle_tpu_torch.train.rollout import eval_rollout
 
@@ -62,7 +64,10 @@ def test_every_module_imports_without_jax():
                  "train.reinforce", "checkpoint", "models.port",
                  "scripts.port_yolox_weights", "data.device_pool",
                  "scripts.eval_oracle_ceiling", "scripts.make_toyds_big", "scripts.load_visdom",
-                 "scripts.prepare", "scripts.dump_metric_curves"):
+                 "scripts.prepare", "scripts.dump_metric_curves", "bench", "utils.timing",
+                 "scripts.bench_rollout_parts", "scripts.bench_attention",
+                 "scripts.bench_embedder_stages", "scripts.bench_pallas_embedder",
+                 "scripts.analyze_trace"):
         assert f"jolineedle_tpu_torch.{name}" in PORT_MODULES
     code = (
         "import importlib, importlib.util, sys\n"
@@ -112,6 +117,9 @@ def test_entry_points_refuse_the_cpu(no_card, device, tmp_path):
         lambda: infer(get_infer_args(["--model-dir", str(tmp_path)]), device=device),
         lambda: train_main(tconfig.get_args(_with_work_dir(tmp_path)), device=device),
         lambda: ReinforceTrainer(train_config, None, None, None, None, device=device),
+        lambda: bench.run(small=True, device=device),
+        lambda: bench_attention.main([], device=device),
+        lambda: bench_rollout_parts.main([], device=device),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="runs on a CUDA device"):
