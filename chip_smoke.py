@@ -105,6 +105,24 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    the phase times (upload, decision, detection, optimizer), the bytes each
    uploads, the peak memory and a ``torch.profiler`` busy share; the
    resumed run's final test is kept for phase 12;
+11b. resume_jax: ``--resume-training`` on a JAX run directory. The
+   supervised train CLI on phase 9's toy set, float32, accumulation 2,
+   ``--lr-schedule cosine``, 3 iterations (its window half full) and its
+   final test; that state written as a JAX run directory
+   (``checkpoint.flax_train_state``: ``checkpoint.msgpack`` and
+   ``config.json``); a trainer resumed from the ``.pt`` files and one from
+   the msgpack (given the first's generator: the JAX file holds none) hold
+   equal optimizer states (AdamW's moments and steps, the update count and
+   the window bit for bit, the accumulated grads within 1e-6 relative),
+   then train 2 iterations each: losses within rtol 1e-6, weights within
+   1e-5, 3 flash launches an iteration; one test of the msgpack trainer
+   launches what ``sup_test_launches`` derives and writes the port's files
+   beside the unchanged msgpack, which they now take precedence over. Then
+   phase 10's REINFORCE state (bf16, inside its window) through a JAX file
+   with the clip level: the resumed trainer's optimizer state is the
+   source's, its return window empty, and one iteration launches 240
+   ``dwblock_bn_silu``, 20 ``conv3x3_bn_silu`` and 3 ``flash_attention``
+   kernels with a finite loss. The phase's wall ms is printed;
 12. eval and report: a toy test set of 10 images of 3 x 3 patches (1344
    px), so that ``--failure-select-rate`` 0.1 picks one worst image.
    ``--measure-flops`` through the train CLI on the card and on the CPU
@@ -1661,6 +1679,14 @@ def require_route(trainer, cache, what):
             f" {trainer.pool.nbytes / 1e6:.1f} MB on the card; --device-data-cache {cache})")
 
 
+def rl_step_launches() -> dict:
+    """The kernel launches of one REINFORCE train step: the rollout's STEPS
+    embedder calls, then N_LAYER flash launches in the teacher-forced
+    forward (its convs run under autograd, on PyTorch)."""
+    return {k: STEPS * n for k, n in EXPECTED_PER_CALL["embedder"].items()} | {
+        "flash_attention": N_LAYER}
+
+
 def train_phase(port, seed, toy, cache):
     """The train CLI (REINFORCE) at the flagship config on the toy dataset;
     returns the launch counts of its runs (train, then resume)."""
@@ -1670,9 +1696,7 @@ def train_phase(port, seed, toy, cache):
     torch.manual_seed(seed)  # as the CLI seeds the model's init
     init = port.GPT.from_config(model_config, port.get_actions_info(train_config),
                                 device="cpu").state_dict()
-    per_step = {"dwblock_bn_silu": STEPS * EXPECTED_PER_CALL["embedder"]["dwblock_bn_silu"],
-                "conv3x3_bn_silu": STEPS * EXPECTED_PER_CALL["embedder"]["conv3x3_bn_silu"],
-                "flash_attention": N_LAYER}
+    per_step = rl_step_launches()
 
     reset_launches(port)
     start = time.perf_counter()
@@ -1922,6 +1946,156 @@ def sup_train_phase(port, seed, toy, cache):
     # whole test set, which the eval phase's eval_checkpoint must reproduce.
     full_test = {k: float(np.mean(v)) for k, v in resumed.last_test_metrics.items()}
     return Counter(main_counts) + Counter(resume_counts), (run_dir, full_test)
+
+
+# --- phase 11b: resume a JAX run --------------------------------------------------------
+def same_optimizer_state(what, got, want, acc_rtol=1e-6):
+    """Two ``Optimizer.state_dict()``s: AdamW's moments and steps, the update
+    count and the window bit for bit, the accumulated grads within
+    ``acc_rtol`` of their largest entry."""
+    a, b = got["adamw"]["state"], want["adamw"]["state"]
+    require(a.keys() == b.keys() and (got["updates"], got["mini_step"])
+            == (want["updates"], want["mini_step"]),
+            f"{what}: {len(a)} AdamW states, updates {got['updates']}, window {got['mini_step']};"
+            f" expected {len(b)}, {want['updates']}, {want['mini_step']}")
+    for i in b:
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            require(torch.equal(a[i][key].cpu(), b[i][key].cpu()), f"{what}: {key} of {i} differs")
+    worst = 0.0
+    for g, w in zip(got["acc_grads"], want["acc_grads"], strict=True):
+        require((g is None) == (w is None), f"{what}: a grad is missing on one side")
+        if w is not None:
+            worst = max(worst, float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+    require(worst <= acc_rtol, f"{what}: accumulated grads {worst:.3g} apart (relative)")
+    return worst
+
+
+def resume_jax_phase(port, seed, toy, cache):
+    """``--resume-training`` on a JAX run directory, at the flagship config.
+    (a) The supervised train CLI, float32, ``--gradient-accumulation 2
+    --lr-schedule cosine``, 3 iterations (the window half full) and its
+    final test; (b) its state written as a JAX run directory
+    (``checkpoint.flax_train_state``, ``config.json``); (c) a trainer
+    resumed from the ``.pt`` files and one from the msgpack (given the
+    other's generator, which the JAX file does not hold): equal optimizer
+    states, then 2 iterations each with equal losses and weights, 3 flash
+    launches an iteration, and one test of the msgpack trainer, which
+    writes the port's files beside the msgpack; (d) phase 10's REINFORCE
+    state (bf16, inside its window) through a JAX file with the clip level,
+    resumed for one iteration: 240 dwblock, 20 stem and 3 flash launches.
+    Returns the phase's launch counts."""
+    from jolineedle_tpu_torch import checkpoint as ckpt
+    from jolineedle_tpu_torch.parallel import mesh
+
+    start = time.perf_counter()
+    root = toy.parent / "resume_jax"
+    shutil.rmtree(root, ignore_errors=True)
+    flags = train_flags(toy, root, seed, cache)
+    for flag, value in (("--training-mode", "supervised"), ("--env-name", "port"),
+                        ("--compute-dtype", "float32"), ("--max-iters", 4)):
+        flags[flags.index(flag) + 1] = str(value)
+    flags += ["--lr-schedule", "cosine"]
+    iters = 3  # the supervised loop runs --max-iters - 1
+    per_iter = {"flash_attention": N_LAYER}
+
+    # (a) the port's run, its window half full
+    reset_launches(port)
+    trainer = port.train_main(port.tconfig.get_args(flags))
+    torch.cuda.synchronize()
+    n_test = len(trainer.test_dataset)
+    counts = Counter(check_launches(port, "resume_jax: the supervised run", dict(
+        Counter({k: iters * n for k, n in per_iter.items()}) + Counter(sup_test_launches(n_test)))))
+    opt = trainer.optimizer
+    require((trainer.step, opt.updates, opt.mini_step) == (iters, 1, 1),
+            f"resume_jax: step {trainer.step}, updates {opt.updates}, window {opt.mini_step}")
+
+    # (b) that state as a JAX run directory
+    jax_dir = root / "jax"
+    ckpt.write_msgpack(jax_dir / ckpt.FLAX_LAST,
+                       ckpt.flax_train_state(trainer.model, opt, trainer.step))
+    shutil.copy(trainer.checkpoint_dir / "config.json", jax_dir / "config.json")
+    jax_bytes = (jax_dir / ckpt.FLAX_LAST).read_bytes()
+    say(f"resume_jax: {ckpt.FLAX_LAST} of step {trainer.step} written"
+        f" ({len(jax_bytes) / 1e6:.1f} MB)")
+    pt_dir = trainer.checkpoint_dir
+    del trainer, opt
+
+    # (c) the two resumes, side by side
+    def resumed(directory, env_name):
+        config, model_config = port.tconfig.args_to_config(port.tconfig.get_args(
+            flags + ["--resume-training", str(directory), "--env-name", env_name]))
+        return port.build_trainer(mesh.single(DEVICE), config, model_config, str(toy), log=False)
+
+    from_pt, from_jax = resumed(pt_dir, "port"), resumed(jax_dir, "jax")
+    from_jax.generator.set_state(from_pt.generator.get_state())
+    require(from_jax.step == from_pt.step == iters, "resume_jax: the resumed steps")
+    acc_err = same_optimizer_state("resume_jax: the msgpack resume against the .pt one",
+                                   from_jax.optimizer.state_dict(), from_pt.optimizer.state_dict())
+    reset_launches(port)
+    for t in (from_pt, from_jax):
+        t.train_loop([1, 2])
+    torch.cuda.synchronize()
+    counts += Counter(check_launches(port, "resume_jax: 2 iterations of each resumed trainer",
+                                     {k: 4 * n for k, n in per_iter.items()}))
+    losses = [[float(v) for v in t.loss_history] for t in (from_pt, from_jax)]
+    require(all(math.isfinite(v) for v in losses[0]) and np.allclose(
+        losses[1], losses[0], rtol=1e-6, atol=0),
+        f"resume_jax: losses {losses[1]} from the msgpack, {losses[0]} from the .pt")
+    params = dict(from_pt.model.named_parameters())
+    weight_err = max(float((p - params[n]).abs().max())
+                     for n, p in from_jax.model.named_parameters())
+    require(weight_err <= 1e-5, f"resume_jax: weights {weight_err:.3g} apart after 2 iterations")
+    require((from_jax.step, from_jax.optimizer.updates, from_jax.optimizer.mini_step)
+            == (iters + 2, 2, 1), "resume_jax: counts after 2 iterations")
+    reset_launches(port)
+    from_jax.test()
+    torch.cuda.synchronize()
+    counts += Counter(check_launches(port, f"resume_jax: one test ({n_test} images)",
+                                     sup_test_launches(n_test)))
+    require((jax_dir / ckpt.FLAX_LAST).read_bytes() == jax_bytes and ckpt.resumed_here(jax_dir)
+            and ckpt.model_file(jax_dir, best=False) == jax_dir / ckpt.CKPT_LAST,
+            "resume_jax: the port's files beside the msgpack")
+    say(f"resume_jax: the msgpack resume holds the .pt resume's optimizer state (grads"
+        f" {acc_err:.3g} apart); 2 iterations: losses {losses[1]} (the .pt's {losses[0]}),"
+        f" weights {weight_err:.3g} apart; its test wrote {ckpt.CKPT_LAST} beside the"
+        " unchanged msgpack, which takes precedence there now")
+    del from_pt, from_jax
+    torch.cuda.empty_cache()
+
+    # (d) REINFORCE in bf16: phase 10's state through a JAX file
+    rl_flags = train_flags(toy, toy.parent / "out", seed, cache)
+    rl_config, rl_model = port.tconfig.args_to_config(port.tconfig.get_args(
+        rl_flags + ["--resume-training", str(toy.parent / "out" / "train")]))
+    source = port.build_trainer(mesh.single(DEVICE), rl_config, rl_model, str(toy), log=False)
+    require(source.optimizer.mini_step == 1 and source.optimizer.clip_value == 1.0,
+            "resume_jax: phase 10's state is not inside its window")
+    rl_dir = root / "jax_rl"
+    tree = ckpt.flax_train_state(source.model, source.optimizer, source.step)
+    require(set(tree["opt_state"]["inner_opt_state"]) == {"0", "1"},
+            "resume_jax: the REINFORCE file has no clip level")
+    ckpt.write_msgpack(rl_dir / ckpt.FLAX_LAST, tree)
+    want = source.optimizer.state_dict()
+    del source
+    rl_config, rl_model = port.tconfig.args_to_config(port.tconfig.get_args(
+        rl_flags + ["--resume-training", str(rl_dir), "--work-dir", str(root),
+                    "--env-name", "jax_rl", "--max-iters", "1"]))
+    rl = port.build_trainer(mesh.single(DEVICE), rl_config, rl_model, str(toy), log=False)
+    same_optimizer_state("resume_jax: the REINFORCE msgpack resume", rl.optimizer.state_dict(),
+                         want)
+    require(rl._window_stats == [], "resume_jax: the return window is not empty")
+    reset_launches(port)
+    rl.train_loop([1])
+    torch.cuda.synchronize()
+    counts += Counter(check_launches(port, "resume_jax: one resumed REINFORCE iteration",
+                                     rl_step_launches()))
+    loss = float(rl.loss_history[-1])
+    require(math.isfinite(loss) and rl.optimizer.updates == want["updates"] + 1
+            and rl.optimizer.mini_step == 0, f"resume_jax: REINFORCE loss {loss}, counts")
+    say(f"resume_jax: REINFORCE resumed from a JAX file at step {rl.step - 1}, loss {loss:.4f}")
+    del rl
+    torch.cuda.empty_cache()
+    say(f"resume_jax: the phase took {(time.perf_counter() - start) * 1e3:.1f} ms")
+    return counts
 
 
 # --- phase 12: eval and report --------------------------------------------------------
@@ -2749,7 +2923,7 @@ def import_port():
     from jolineedle_tpu_torch.checkpoint import save_model
     from jolineedle_tpu_torch.data.toy import generate_toy_dataset
     from jolineedle_tpu_torch.env.actions import get_actions_info
-    from jolineedle_tpu_torch.main import build_both_datasets
+    from jolineedle_tpu_torch.main import build_both_datasets, build_trainer
     from jolineedle_tpu_torch.main import main as train_main
     from jolineedle_tpu_torch.models.gpt import GPT
     from jolineedle_tpu_torch.ops import attention as kattn
@@ -2763,6 +2937,7 @@ def import_port():
                            get_actions_info=get_actions_info, train_main=train_main, GPT=GPT,
                            kattn=kattn, kconv=kconv, build_kernels=build_kernels,
                            build_both_datasets=build_both_datasets,
+                           build_trainer=build_trainer,
                            ReinforceTrainer=ReinforceTrainer, SupervisedTrainer=SupervisedTrainer,
                            fixed_training_shape=fixed_training_shape)
 
@@ -2839,6 +3014,8 @@ def main(argv=None) -> int:
     by_path["train"] = train_phase(port, args.seed, toy, args.device_data_cache)
     torch.cuda.empty_cache()
     by_path["supervised"], sup_run = sup_train_phase(port, args.seed, toy, args.device_data_cache)
+    torch.cuda.empty_cache()
+    by_path["resume_jax"] = resume_jax_phase(port, args.seed, toy, args.device_data_cache)
     torch.cuda.empty_cache()
     by_path["eval"] = eval_phase(port, args.seed, model_dir, sup_run)
     torch.cuda.empty_cache()

@@ -14,13 +14,23 @@ The port reads them with its own codec (``msgpack_restore``, stdlib and
 numpy only) and loads the model part through ``models/bridge.py``: for
 serving (``load_model_file``), for ``--init-from`` (``load_params_only``,
 which grafts across a changed action count) and for
-``--detection-checkpoint`` (``load_detection_params``). The JAX optimizer
-state is not carried across, so ``--resume-training`` takes only the port's
-own files.
+``--detection-checkpoint`` (``load_detection_params``).
+``--resume-training`` on a JAX run directory restores the whole train
+state (``load_flax_train_state``): the weights, and the optax state as the
+port's ``Optimizer`` state (``flax_optimizer_state``; the inverse,
+``optimizer_to_flax``, writes a port optimizer in optax's layout).
+
+A port run resumed from a JAX run in the same directory writes its ``.pt``
+files beside the msgpack ones and records the msgpack it resumed from (name,
+size, SHA-256) in ``train_state.pt``; while that record matches the
+directory's ``checkpoint.msgpack``, the ``.pt`` files take precedence over
+the msgpack of the same kind (``model_file``). Anywhere else a directory
+holding both kinds raises.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 import struct
 from pathlib import Path
@@ -30,7 +40,10 @@ import numpy as np
 import torch
 
 from .models.bridge import (
+    _to_flax,
+    _to_torch,
     flax_to_torch,
+    gpt_param_entries,
     torch_to_flax,
     yolox_flax_to_torch,
     yolox_torch_to_flax,
@@ -293,12 +306,6 @@ def save_model(model: torch.nn.Module, directory, best: bool = False) -> Path:
     return path
 
 
-def load_model(model: torch.nn.Module, directory, best: bool = True) -> torch.nn.Module:
-    """Load ``directory``'s best (or last) ``.pt`` checkpoint into ``model``, strictly."""
-    load_model_file(model, Path(directory) / (CKPT_BEST if best else CKPT_LAST))
-    return model
-
-
 def save_train_state(state: dict, directory) -> Path:
     """Write a trainer's non-model state (tensors, numbers, lists, dicts)."""
     path = Path(directory) / TRAIN_STATE
@@ -314,14 +321,46 @@ def load_train_state(directory) -> dict:
 # --- either package's files -------------------------------------------------------------
 def model_file(directory, best: bool) -> Optional[Path]:
     """The best (or last) checkpoint of ``directory``, the port's ``.pt`` or
-    the JAX package's ``.msgpack``; None if neither is there. Raises if
-    both are: which one was meant cannot be told."""
+    the JAX package's ``.msgpack``; None if neither is there. Where both
+    are, the ``.pt`` if the port resumed this directory's JAX run here
+    (``resumed_here``); otherwise raises: which one was meant cannot be
+    told."""
     names = (CKPT_BEST, FLAX_BEST) if best else (CKPT_LAST, FLAX_LAST)
     present = [Path(directory) / n for n in names if (Path(directory) / n).exists()]
     if len(present) == 2:
+        if resumed_here(directory):
+            return present[0]
         raise ValueError(f"{directory} holds both {names[0]} and {names[1]}; remove the one"
                          " that is not meant")
     return present[0] if present else None
+
+
+def file_record(path, data: bytes) -> dict:
+    """What ``train_state.pt`` keeps of the JAX file ``path`` (whose bytes
+    are ``data``) that a run resumed from: its name, size and SHA-256."""
+    return {"name": Path(path).name, "size": len(data),
+            "sha256": hashlib.sha256(data).hexdigest()}
+
+
+def holds_record(directory, record: Optional[dict]) -> bool:
+    """Whether ``directory``'s ``checkpoint.msgpack`` is the file of
+    ``record`` (``file_record``), unchanged."""
+    path = Path(directory) / FLAX_LAST
+    if not record or record["name"] != FLAX_LAST or not path.exists() \
+            or path.stat().st_size != record["size"]:
+        return False
+    return file_record(path, path.read_bytes()) == record
+
+
+def resumed_here(directory) -> bool:
+    """Whether ``directory``'s ``train_state.pt`` records its own
+    ``checkpoint.msgpack``: then a port run resumed that JAX run in this
+    directory, and its ``.pt`` files are the newer."""
+    path = Path(directory) / TRAIN_STATE
+    if not path.exists() or not (Path(directory) / FLAX_LAST).exists():
+        return False
+    state = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    return holds_record(directory, state.get("jax_origin"))
 
 
 def load_flax_model(model, path) -> dict:
@@ -340,6 +379,233 @@ def load_model_file(model, path) -> None:
     else:
         model.load_state_dict(torch.load(path, map_location="cpu", weights_only=True),
                               strict=True)
+
+
+# --- the JAX train state: optax's layout ------------------------------------------------
+# The optax state of the JAX trainer's optimizer (``jolineedle_tpu/train/
+# optim.py::make_optimizer``) as flax's ``to_state_dict`` writes it, a
+# tuple's fields under "0", "1", ...; ``<params>`` is a tree of the params'
+# layout (``bridge.gpt_param_entries``), ``{}`` at a leaf its partition
+# masks out:
+#
+#   with --gradient-accumulation > 1, MultiSteps:
+#       mini_step, gradient_step (int32), acc_grads <params> (every leaf, the
+#       running mean of the window's gradients), skip_state {}, inner_opt_state:
+#   with the clip (REINFORCE): "0" {}, "1":
+#   inner_states/gpt|yolox/inner_state, the AdamW chain:
+#       "0" {count, mu <params>, nu <params>}, "1" {} (the weight decay),
+#       "2" {count} with --lr-schedule cosine, else {};
+#   inner_states/frozen/inner_state {}
+ADAM_PARTS = ("gpt", "yolox")
+
+
+def _get(tree, path):
+    """``tree``'s node at ``path``, or None where a key is missing."""
+    for key in path:
+        if not isinstance(tree, dict) or key not in tree:
+            return None
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _node(tree, path, where):
+    node = _get(tree, path)
+    if node is None:
+        raise ValueError(f"{where}: the optimizer state has no {'/'.join(path)}")
+    return node
+
+
+def _mismatch(where, flag, detail) -> ValueError:
+    return ValueError(
+        f"{where}: the optimizer state was made with another {flag} than this run's"
+        f" ({detail}); resume with the flags it was trained with, or warm-start its"
+        " weights with --init-from")
+
+
+def _partition_flag(names) -> str:
+    """The flag that moves ``names`` between a trained and the frozen
+    partition (``train/optim.py::param_labels``)."""
+    if any(n.startswith("yolox.") and not n.startswith("yolox.backbone.") for n in names):
+        return "--no-detection"
+    if all(n.startswith("yolox.backbone.") for n in names):
+        return "--freeze-image-processor"
+    return "model configuration"
+
+
+def flax_optimizer_state(opt_state: dict, optimizer, entries, where="opt_state") -> dict:
+    """The JAX trainer's optax state (``opt_state`` of a train-state
+    msgpack, as ``read_msgpack`` returns it) as the port ``optimizer``'s
+    ``state_dict()``, for its ``load_state_dict``. ``entries``: (parameter
+    name, flax params path, transform) of every parameter
+    (``bridge.gpt_param_entries``).
+
+    Each trained parameter's AdamW ``exp_avg``/``exp_avg_sq`` is its
+    partition's ``mu``/``nu`` and its ``step`` the partition's count (both
+    count completed updates), ``updates`` that count and ``mini_step``
+    MultiSteps' own. MultiSteps keeps the running mean of the window's
+    gradients where the port sums them into ``.grad``: a grad is
+    ``acc_grads × mini_step``. Raises ValueError, naming the flag, where
+    the state's structure is not the one this optimizer's flags make (as
+    flax's ``from_bytes`` refuses it), and where its counts disagree."""
+    k = optimizer.every_k
+    multi = isinstance(opt_state, dict) and "mini_step" in opt_state
+    if multi != (k > 1):
+        raise _mismatch(where, "--gradient-accumulation",
+                        f"the state {'accumulates' if multi else 'does not accumulate'}"
+                        f" gradients, this run's flag is {k}")
+    inner = opt_state["inner_opt_state"] if multi else opt_state
+    clipped = isinstance(inner, dict) and set(inner) == {"0", "1"}
+    if clipped != (optimizer.clip_value is not None):
+        raise _mismatch(where, "--training-mode",
+                        "the state clips the gradients, as REINFORCE does" if clipped else
+                        "the state does not clip the gradients, as the supervised mode does not")
+    if clipped:
+        inner = inner["1"]
+    parts = _node(inner, ("inner_states",), where)
+    if set(parts) != {*ADAM_PARTS, "frozen"}:
+        raise ValueError(f"{where}: optimizer partitions {sorted(parts)}, expected"
+                         f" {sorted({*ADAM_PARTS, 'frozen'})}")
+    cosine = optimizer.schedule[0] == "cosine"
+    counts, stored, moments = {}, {}, {}
+    for part in ADAM_PARTS:
+        chain = _node(parts, (part, "inner_state"), where)
+        adam, sched = _node(chain, ("0",), where), _node(chain, ("2",), where)
+        if ("count" in sched) != cosine:
+            raise _mismatch(where, "--lr-schedule",
+                            f"the state {'has' if 'count' in sched else 'has no'} schedule"
+                            f" count, this run's schedule is {optimizer.schedule[0]}")
+        counts[f"{part} count"] = int(_node(adam, ("count",), where))
+        if cosine:
+            counts[f"{part} schedule count"] = int(sched["count"])
+        for name, fpath, _ in entries:
+            mu = _get(adam.get("mu"), fpath)
+            if isinstance(mu, np.ndarray):
+                if name in stored:
+                    raise ValueError(f"{where}: {name} has moments in two partitions")
+                stored[name] = part
+                moments[name] = (mu, _node(adam, ("nu",) + fpath, where))
+    if multi:
+        counts["gradient_step"] = int(opt_state["gradient_step"])
+    if len(set(counts.values())) != 1:
+        raise ValueError(f"{where}: the optimizer's update counts disagree: {counts}")
+    updates = counts["gpt count"]
+
+    labels = optimizer.labels
+    if set(labels) != {name for name, _, _ in entries}:
+        raise KeyError(f"the key map does not name the optimizer's parameters:"
+                       f" {sorted(set(labels) ^ {name for name, _, _ in entries})[:4]}")
+    differ = [n for n in labels if stored.get(n, "frozen") != labels[n]]
+    if differ:
+        raise _mismatch(where, _partition_flag(differ),
+                        f"{len(differ)} parameters differ, e.g. {differ[0]} is"
+                        f" {stored.get(differ[0], 'frozen')} in the state and"
+                        f" {labels[differ[0]]} in this run")
+
+    mini = int(opt_state["mini_step"]) if multi else 0
+    if mini >= k:
+        raise _mismatch(where, "--gradient-accumulation",
+                        f"{mini} gradients accumulated, this run's window holds {k - 1} at most")
+    transform = {name: (fpath, tf) for name, fpath, tf in entries}
+
+    def as_torch(value, name, p) -> torch.Tensor:
+        """A leaf of ``name`` in the params' layout, as a tensor of ``p``'s."""
+        if not isinstance(value, np.ndarray):
+            raise ValueError(f"{where}: {name}'s optimizer state holds no array")
+        out = torch.from_numpy(np.ascontiguousarray(_to_torch(value, transform[name][1])))
+        if out.shape != p.shape:
+            raise ValueError(f"{where}: {name}'s optimizer state has the shape"
+                             f" {tuple(out.shape)}, the parameter {tuple(p.shape)}")
+        return out
+
+    state, grads = {}, []
+    for i, (name, p) in enumerate(zip(optimizer.trained_names, optimizer.trained_params())):
+        if updates:  # AdamW holds no state before its first update
+            mu, nu = moments[name]
+            state[i] = {"step": torch.tensor(float(updates)),
+                        "exp_avg": as_torch(mu, name, p), "exp_avg_sq": as_torch(nu, name, p)}
+        if mini:
+            acc = _node(opt_state, ("acc_grads",) + transform[name][0], where)
+            grads.append(as_torch(acc, name, p) * mini)
+        else:
+            grads.append(None)
+    return {"adamw": {"state": state,
+                      "param_groups": optimizer.adamw.state_dict()["param_groups"]},
+            "mini_step": mini, "updates": updates, "acc_grads": grads}
+
+
+def optimizer_to_flax(optimizer, entries) -> dict:
+    """The inverse of ``flax_optimizer_state``: the port ``optimizer``'s
+    state as the optax state the JAX trainer would hold with the same
+    flags, in flax's state-dict layout (``write_msgpack`` writes it). A
+    trained parameter with no AdamW state yet gets zero moments; a frozen
+    one, and a trained one with no grad, a zero accumulated gradient."""
+    updates = np.asarray(optimizer.updates, np.int32)
+    index = {name: i for i, name in enumerate(optimizer.trained_names)}
+    adam_state = optimizer.adamw.state_dict()["state"]
+    flat = lambda value, tf: np.array(_to_flax(value.detach().cpu().float().numpy(), tf))
+    parts = {}
+    for part in ADAM_PARTS:
+        adam = {"count": updates, "mu": {}, "nu": {}}
+        for name, fpath, tf in entries:
+            st = adam_state.get(index.get(name)) or {}
+            for key, moment in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                if optimizer.labels[name] != part:
+                    value = {}
+                else:
+                    value = flat(st.get(moment, torch.zeros_like(optimizer.params[name])), tf)
+                _put(adam[key], fpath, value)
+        sched = {"count": updates} if optimizer.schedule[0] == "cosine" else {}
+        parts[part] = {"inner_state": {"0": adam, "1": {}, "2": sched}}
+    parts["frozen"] = {"inner_state": {}}
+    tree = {"inner_states": parts}
+    if optimizer.clip_value is not None:
+        tree = {"0": {}, "1": tree}
+    if optimizer.every_k == 1:
+        return tree
+    mini = optimizer.mini_step
+    acc = {}
+    for name, fpath, tf in entries:
+        p = optimizer.params[name]
+        trained = optimizer.labels[name] != "frozen" and p.grad is not None and mini
+        _put(acc, fpath, flat(p.grad / mini if trained else torch.zeros_like(p), tf))
+    return {"mini_step": np.asarray(mini, np.int32), "gradient_step": updates,
+            "inner_opt_state": tree, "acc_grads": acc, "skip_state": {}}
+
+
+def flax_train_state(model, optimizer, step: int) -> dict:
+    """The port's ``model``, ``optimizer`` and ``step`` as the JAX trainer's
+    ``TrainState`` tree (``params``, ``batch_stats``, ``opt_state``,
+    ``step``): ``write_msgpack`` of it is a ``checkpoint.msgpack`` that
+    either package resumes."""
+    tree = torch_to_flax(model.state_dict(), model)
+    tree["opt_state"] = optimizer_to_flax(optimizer, gpt_param_entries(model))
+    tree["step"] = np.asarray(step, np.int32)
+    return tree
+
+
+def load_flax_train_state(path, model, optimizer) -> tuple:
+    """``--resume-training`` from a JAX train-state msgpack: its weights
+    into the port's ``GPT`` ``model`` and its optax state into
+    ``optimizer`` (``flax_optimizer_state``), both strictly, neither before
+    both were read. Returns the state's step and the file's record
+    (``file_record``)."""
+    path = Path(path)
+    data = path.read_bytes()
+    raw = msgpack_restore(data)
+    missing = sorted({"params", "batch_stats", "opt_state", "step"} - set(raw))
+    if missing:
+        raise ValueError(f"{path} is not a JAX train state: it has no {missing}")
+    opt_state = flax_optimizer_state(raw["opt_state"], optimizer, gpt_param_entries(model),
+                                     where=str(path))
+    flax_to_torch({"params": raw["params"], "batch_stats": raw["batch_stats"]}, model)
+    optimizer.load_state_dict(opt_state)
+    return int(raw["step"]), file_record(path, data)
 
 
 def _graft_overlap(target, ckpt, path=""):

@@ -179,6 +179,15 @@ def gpt_key_map(model) -> List[MapEntry]:
     return entries
 
 
+def gpt_param_entries(model) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """(torch parameter name, flax ``params`` path, transform) of every
+    parameter of the port's ``GPT`` ``model``: ``gpt_key_map`` without the
+    batch statistics. optax's per-parameter trees (the AdamW moments, the
+    accumulated gradients) have this layout."""
+    return [(tkey, fpath, tf) for tkey, coll, fpath, tf in gpt_key_map(model)
+            if coll == "params"]
+
+
 # --- leaf transforms -------------------------------------------------------------
 def _to_torch(value: np.ndarray, how: str) -> np.ndarray:
     value = np.asarray(value, np.float32)

@@ -91,13 +91,16 @@ class Optimizer:
         lr_decay_iters: int = 1,
     ):
         self.labels = param_labels(model, freeze_image_processor, detection_enabled)
-        params = dict(model.named_parameters())
+        self.params = params = dict(model.named_parameters())
         groups = []
+        #: The names of ``trained_params()``, in its order.
+        self.trained_names = []
         for label, lr in (("gpt", learning_rate), ("yolox", yolo_lr)):
             names = [n for n, lab in self.labels.items() if lab == label]
             if names:
                 groups.append({"params": [params[n] for n in names], "lr": lr,
                                "base_lr": lr, "label": label})
+                self.trained_names += names
         self.frozen = [params[n] for n, lab in self.labels.items() if lab == "frozen"]
         self.adamw = torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
                                        weight_decay=weight_decay)
@@ -149,6 +152,8 @@ class Optimizer:
         }
 
     def load_state_dict(self, state: dict) -> None:
+        """Restore a ``state_dict()``: the port's own, or the JAX trainer's
+        optax state converted by ``checkpoint.flax_optimizer_state``."""
         self.adamw.load_state_dict(state["adamw"])
         self.mini_step = int(state["mini_step"])
         self.updates = int(state["updates"])

@@ -279,7 +279,8 @@ def test_enable_stop_warm_starts_from_a_supervised_run(tmp_path, capsys):
 
 def test_model_directory_of_either_format(tmp_path):
     """A directory with both formats raises; a msgpack-only one serves the
-    same weights, cannot be resumed, and raises when its file is cut short."""
+    same weights, cannot be resumed without a last checkpoint, and raises
+    when its file is cut short."""
     from jolineedle_tpu_torch.infer import load_model_dir
 
     train_config, model_config, model = _model("reinforce", tmp_path, True, 0)
@@ -297,8 +298,8 @@ def test_model_directory_of_either_format(tmp_path):
     for key, value in model.state_dict().items():
         if not key.endswith("num_batches_tracked"):
             torch.testing.assert_close(served.state_dict()[key], value, rtol=0, atol=0)
-    # a JAX run directory cannot be resumed: its optimizer state stays behind
-    with pytest.raises(ValueError, match="use --init-from|with --init-from"):
+    # a directory with a best checkpoint and no last one cannot be resumed
+    with pytest.raises(ValueError, match="holds a best checkpoint but no last one"):
         trainer.load_checkpoint(run_dir)
     (run_dir / ckpt.FLAX_BEST).write_bytes(b"\x81\xa6params")  # truncated
     with pytest.raises(ckpt.MsgpackError, match="truncated"):

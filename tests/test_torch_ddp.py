@@ -28,7 +28,9 @@ this file would import JAX. One PyTorch thread per rank.
 - the train CLI with ``--devices 0 1`` in each mode: it trains, tests and
   writes the files of a one-device run, once; a resume at W = 2 from a
   checkpoint taken inside an accumulation window continues as the resume of
-  the one-device run at the global batch does; a repeated index is
+  the one-device run at the global batch does; a resume at W = 2 from a
+  JAX run directory (``checkpoint.flax_train_state`` of a REINFORCE run
+  inside its window) leaves every rank's state equal; a repeated index is
   refused; no rank imports JAX;
 - torchrun's route: two processes that join through ``RANK`` and
   ``WORLD_SIZE`` train with equal losses, those of the one-device run.
@@ -66,7 +68,8 @@ from jolineedle_tpu.ops import simota as jsimota
 from jolineedle_tpu.parallel.mesh import make_mesh, replicate, shard_batch
 from jolineedle_tpu.train import supervised as jsup
 from jolineedle_tpu_torch import config as tconfig
-from jolineedle_tpu_torch.checkpoint import load_train_state
+from jolineedle_tpu_torch.checkpoint import (flax_train_state, load_model_file,
+                                           load_train_state, write_msgpack)
 from jolineedle_tpu_torch.data.toy import generate_toy_dataset
 from jolineedle_tpu_torch.env.actions import get_actions_info as t_actions_info
 from jolineedle_tpu_torch.env.batched_env import NeedleEnv
@@ -513,6 +516,31 @@ def test_cli_trains_tests_and_resumes_on_two_ranks(mode, toy, tmp_path, capfd):
     state1 = torch.load(dir1 / "checkpoint.pt", weights_only=True)
     assert not ranks.weights_disagree(state1, state2, _lr_of)
     assert ranks.stats_relative(state1, state2) < 1e-4
+
+
+def test_cli_resumes_a_jax_format_run_on_two_ranks(toy, tmp_path, capfd):
+    """``--devices 0 1 --resume-training`` on a JAX run directory (a
+    REINFORCE train state inside an accumulation window, with the clip
+    level, as ``checkpoint.flax_train_state`` writes it): every rank reads
+    the file, and their states agree after the iteration that completes
+    the window."""
+    flags = lambda w, b, extra=(): _train_flags("reinforce", toy, tmp_path / w, b,
+                                                ["--max-iters", "1", *extra])
+    one, _ = _cli_run(flags("one", 4), capfd)
+    run_dir = tmp_path / "one" / "reinforce"
+    load_model_file(one.model, run_dir / "checkpoint.pt")  # the last state, not the best
+    jax_dir = tmp_path / "jax" / "reinforce"
+    write_msgpack(jax_dir / "checkpoint.msgpack",
+                  flax_train_state(one.model, one.optimizer, one.step))
+    (jax_dir / "config.json").write_bytes((run_dir / "config.json").read_bytes())
+    assert {p.name for p in jax_dir.iterdir()} == {"checkpoint.msgpack", "config.json"}
+
+    two, _ = _cli_run(flags("two", 2, ["--devices", "0", "1", "--resume-training",
+                                       str(jax_dir)]), capfd)
+    assert [s["rank"] for s in two] == [0, 1]
+    assert all(s["step"] == 2 and s["updates"] == 1 and s["mini_step"] == 0 for s in two)
+    assert two[0]["digest"] == two[1]["digest"] is not None
+    assert two[0]["losses"] == two[1]["losses"] and np.isfinite(two[0]["losses"]).all()
 
 
 def test_cli_refuses_a_repeated_device(toy, tmp_path):
