@@ -123,6 +123,23 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    source's, its return window empty, and one iteration launches 240
    ``dwblock_bn_silu``, 20 ``conv3x3_bn_silu`` and 3 ``flash_attention``
    kernels with a finite loss. The phase's wall ms is printed;
+11c. recipe: the port's ``run_sup_flagship.sh <dir> yolox-s 1 4`` through
+   ``sh`` (its ``python -m jolineedle_tpu_torch.main``, bf16, B = 16, 8
+   patches of 64 px, the yolox-s detector and the yolox-nano embedder) on
+   16 + 10 images of 320 x 448 from ``make_toyds_big``'s generator: it
+   exits 0, writes its run files with finite final-validation metrics, and
+   the launches it prints at its end (``kernel launches: {...}``) are what
+   its config implies: 3 flash launches in each of its 3 iterations, then
+   its final test's (``sup_test_launches`` at episodes of 8 and the conv
+   launches per embedder and detector call read from the run's model at
+   64 px; its worst-images pass takes one image). Then ``dwblock_bn_silu``
+   and ``conv3x3_bn_silu`` at every shape those tests launch them (the
+   embedder's at one rollout chunk of 32 patches, the detector's at one
+   detection chunk of 32 episodes of 8 patches) in float32 and bfloat16
+   against their plain versions, and the recipe's train step with its CUDA
+   graphs (``train/graphs.py``) against the eager step from one state on the
+   same batches, in float32 and bfloat16 (losses within rtol 1e-6, weights
+   within 1e-6 after 2 steps), with each one's wall ms in turns;
 12. eval and report: a toy test set of 10 images of 3 x 3 patches (1344
    px), so that ``--failure-select-rate`` 0.1 picks one worst image.
    ``--measure-flops`` through the train CLI on the card and on the CPU
@@ -231,6 +248,7 @@ name and power limit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
@@ -319,6 +337,17 @@ FULL_PREFIX_RUNS = [(FULL_PREFIX_B, torch.float32), (1, torch.bfloat16)]
 TRAIN_STEP_OPS_WITH_COPIES = 28_328
 # The float32 route-equality steps of the pool phase run at this batch.
 ROUTE_B = 4
+# The recipe phase: the port's run_sup_flagship.sh (yolox-s) for
+# RECIPE_ITERS iterations on a toy set of the recipe's 320 x 448 images
+# (make_toyds_big's generator) with RECIPE_TEST test images, so that the
+# final test's worst-images pass (--failure-select-rate 0.1) takes one;
+# then the graphed train step against the eager one, GRAPH_STEPS steps each.
+RECIPE_SCRIPT = "jolineedle_tpu_torch/scripts/run_sup_flagship.sh"
+RECIPE_ITERS, RECIPE_TRAIN, RECIPE_TEST, GRAPH_STEPS = 3, 16, 10, 2
+# A graphed step against the eager one from the same state: losses and
+# weights (the same kernels on the same tensors; cuDNN's backward sums in
+# its own order).
+GRAPH_RTOL, GRAPH_ATOL = 1e-6, 1e-6
 # The plain 3x3 conv: the smoke script's default and the nano stem.
 PLAIN_CONV_SHAPES = [(8, 56, 56, 16, 32), (N_PATCHES, PATCH // 2, PATCH // 2, 12, 16)]
 # The dense 3x3 convs of a wider variant, held and timed beside the path.
@@ -378,10 +407,10 @@ def bound(n_bytes: float, n_ops: float, dtype, peak=None) -> tuple:
 
 
 # --- the path's kernel shapes --------------------------------------------------
-def path_shapes(model) -> dict:
+def module_kernel_calls(model, patch: int) -> dict:
     """{"embedder" | "detector": Counter((kernel, H, W, C, K))}: the kernel
-    launches of one embedder call and one detector call on a 448 px patch,
-    read from the modules that take a kernel."""
+    launches of one embedder call and one detector call on a ``patch`` px
+    patch, read from the modules that take a kernel."""
     from jolineedle_tpu_torch.models.yolox import ConvBnAct, DWConv
 
     seen = []
@@ -398,21 +427,33 @@ def path_shapes(model) -> dict:
             handles.append(m.register_forward_hook(hook("dwblock_bn_silu")))
         elif isinstance(m, ConvBnAct) and m.uses_conv3x3_kernel:
             handles.append(m.register_forward_hook(hook("conv3x3_bn_silu")))
-    patch = torch.zeros((1, PATCH, PATCH, 3), dtype=torch.uint8, device=model.device)
+    x = torch.zeros((1, patch, patch, 3), dtype=torch.uint8, device=model.device)
     out = {}
     with torch.no_grad():
-        model.embed_patches(patch[:, None])
+        model.embed_patches(x[:, None])
         out["embedder"], seen[:] = Counter(seen), []
-        model.yolox_outputs(patch)
+        model.yolox_outputs(x)
         out["detector"] = Counter(seen)
     for h in handles:
         h.remove()
+    return out
+
+
+def per_kernel(calls: Counter) -> dict:
+    """{kernel: launches} of one call's Counter((kernel, H, W, C, K))."""
+    out = Counter()
+    for (name, *_), n in calls.items():
+        out[name] += n
+    return dict(out)
+
+
+def path_shapes(model) -> dict:
+    """``module_kernel_calls`` of the flagship at PATCH, each call's
+    launches checked against EXPECTED_PER_CALL."""
+    out = module_kernel_calls(model, PATCH)
     for call, counts in out.items():
-        per_kernel = Counter()
-        for (name, *_), n in counts.items():
-            per_kernel[name] += n
-        if dict(per_kernel) != EXPECTED_PER_CALL[call]:
-            raise AssertionError(f"{call}: kernel calls {dict(per_kernel)},"
+        if per_kernel(counts) != EXPECTED_PER_CALL[call]:
+            raise AssertionError(f"{call}: kernel calls {per_kernel(counts)},"
                                  f" expected {EXPECTED_PER_CALL[call]}")
     return out
 
@@ -727,7 +768,7 @@ def new_kernel_phase(port, seed):
     return rows
 
 
-def kernels_json(rows, new_rows, wide_rows, launches, by_path):
+def kernels_json(rows, new_rows, wide_rows, recipe_rows, launches, by_path):
     """One entry per kernel. The fused conv blocks: their numbers summed over
     the launches of one detector call (bfloat16, the serving dtype), each
     shape in ``shapes``. Flash attention: one teacher-forced forward of the
@@ -739,8 +780,9 @@ def kernels_json(rows, new_rows, wide_rows, launches, by_path):
     ``launches``
     sums every path's count, the data-parallel ranks' (``ddp``) included;
     ``launches_by_path`` splits it. The wide
-    variant's rows go under conv3x3_bn_silu's ``wide_variant_shapes``,
-    outside its totals."""
+    variant's rows go under conv3x3_bn_silu's ``wide_variant_shapes``, and
+    the recipe's (64 px patches, phase 11c) under the fused blocks'
+    ``recipe_shapes``, outside the totals."""
     keys = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")
     out = []
@@ -785,6 +827,10 @@ def kernels_json(rows, new_rows, wide_rows, launches, by_path):
             **totals,
             "shapes": [{k: r[k] for k in keys + extra} for r in mine],
         })
+        mine_recipe = [r for r in recipe_rows if r["name"] == name]
+        if mine_recipe:
+            out[-1]["recipe_shapes"] = [{k: r[k] for k in ("call",) + keys + ("per_call",)}
+                                        for r in mine_recipe]
         if name == "conv3x3_bn_silu":
             out[-1]["wide_variant_shapes"] = [
                 {k: r[k] for k in ("variant",) + keys + ("per_detector_call",)}
@@ -1778,29 +1824,33 @@ def train_phase(port, seed, toy, cache):
     return Counter(main_counts) + Counter(resume_counts)
 
 
-def conv_launches(calls: dict) -> dict:
-    """The conv kernels' launches of ``calls`` embedder and detector calls."""
-    return {k: sum(calls[c] * EXPECTED_PER_CALL[c][k] for c in calls)
-            for k in EXPECTED_PER_CALL["embedder"]}
+def conv_launches(calls: dict, per_call=EXPECTED_PER_CALL) -> dict:
+    """The conv kernels' launches of ``calls`` embedder and detector calls,
+    each launching ``per_call[call]``."""
+    return {k: sum(calls[c] * per_call[c].get(k, 0) for c in calls)
+            for k in ("dwblock_bn_silu", "conv3x3_bn_silu")}
 
 
-def sup_test_launches(n_ids: int, n_worst: int = 0) -> dict:
+def sup_test_launches(n_ids: int, n_worst: int = 0, steps: int = STEPS,
+                      per_call=EXPECTED_PER_CALL) -> dict:
     """The kernel launches of one supervised ``test()`` on ``n_ids`` test
     images of one shape, from ``train/supervised.py`` and
     ``train/trainer.py``: two starts per image (multistart), so ``2 n_ids``
-    rollout rows in chunks of at most EVAL_CHUNK, each chunk STEPS - 1 steps
-    of one embedder call; their detections in chunks of EVAL_DET_ROWS
-    episodes, one detector call each; the same for the ``n_worst`` images of
-    the worst-images pass (a second ``eval_envs``); and per TRAIN_B images
-    the teacher-forced eval's one forward (an embedder call and N_LAYER
-    flash launches) and one detector call."""
+    rollout rows in chunks of at most EVAL_CHUNK, each chunk ``steps`` - 1
+    steps of one embedder call; their detections in chunks of
+    ``DET_EVAL_PATCHES // steps`` episodes (at most EVAL_CHUNK), one detector
+    call each; the same for the ``n_worst`` images of the worst-images pass
+    (a second ``eval_envs``); and per TRAIN_B images the teacher-forced
+    eval's one forward (an embedder call and N_LAYER flash launches) and
+    one detector call. ``per_call``: each call's conv launches."""
+    det_rows = min(EVAL_CHUNK, DET_EVAL_PATCHES // steps)
     sup_batches = math.ceil(n_ids / TRAIN_B)
     calls = Counter({"embedder": sup_batches, "detector": sup_batches})
     for n in (n_ids, n_worst):
         if n:
-            calls += Counter({"embedder": math.ceil(2 * n / EVAL_CHUNK) * (STEPS - 1),
-                              "detector": math.ceil(2 * n / EVAL_DET_ROWS)})
-    out = conv_launches(calls)
+            calls += Counter({"embedder": math.ceil(2 * n / EVAL_CHUNK) * (steps - 1),
+                              "detector": math.ceil(2 * n / det_rows)})
+    out = conv_launches(calls, per_call)
     out["flash_attention"] = N_LAYER * sup_batches
     return out
 
@@ -2104,6 +2154,164 @@ def resume_jax_phase(port, seed, toy, cache):
 # pick int(0.1 * EVAL_TEST) worst images.
 EVAL_TEST, EVAL_GRID, FAILURE_RATE = 10, 3, 0.1
 NMS_SIZES = (64, 1000)
+
+
+# --- phase 11c: the recipe ---------------------------------------------------------------
+def recipe_kernel_rows(port, calls, steps, seed):
+    """Each kernel at every shape the recipe's tests launch it, both dtypes,
+    against its plain version: the embedder's at EVAL_CHUNK patches (one
+    eval rollout step) and the detector's at one eval detection chunk
+    (``DET_EVAL_PATCHES // steps`` episodes of ``steps`` patches)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    det_n = min(EVAL_CHUNK, DET_EVAL_PATCHES // steps) * steps
+    rows = []
+    for call, n in (("embedder", EVAL_CHUNK), ("detector", det_n)):
+        for (name, H, W, C, K), per in sorted(calls[call].items()):
+            for dtype in (torch.float32, torch.bfloat16):
+                r = KERNELS[name]["measure"](port.kconv, H, W, C, K, dtype, gen, n=n)
+                r.update(name=name, call=call, shape=[n, H, W, C, K],
+                         dtype=DTYPE_NAMES[dtype], per_call=per)
+                rows.append(r)
+                say(f"recipe kernel {name} ({call}, {per} a call) x[{n},{H},{W},{C}]->{K}"
+                    f" {DTYPE_NAMES[dtype]}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
+                    f" cuDNN {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
+                    f" ({r['bound_by']}), max |err| {r['max_abs_err']:.3g}")
+    return rows
+
+
+def graphed_against_eager(port, run_dir, toy, seed):
+    """The recipe's train step with its CUDA graphs (``train/graphs.py``)
+    against the eager step, from one state on the same batches, in float32
+    and bfloat16: losses within GRAPH_RTOL and weights within GRAPH_ATOL
+    after GRAPH_STEPS steps; then the wall ms of a step each way, in turns."""
+    from jolineedle_tpu_torch.parallel import mesh
+
+    flags_train, flags_model = port.tconfig.config_from_file(run_dir / "config.json")
+    for dtype in ("float32", "bfloat16"):
+        train_config, model_config = copy.deepcopy(flags_train), copy.deepcopy(flags_model)
+        model_config.compute_dtype = dtype
+        train_config.work_dir = str(toy.parent / "graphs")
+        trainer = port.build_trainer(mesh.single(torch.device(DEVICE)), train_config,
+                                     model_config, toy, log=False)
+        trainer.pool = trainer.build_pool()
+        rng = np.random.default_rng(seed)
+        n_train = len(trainer.train_dataset)
+        batches = [trainer.build_batch(rng.integers(0, n_train, TRAIN_B).tolist(), seed + i)
+                   for i in range(GRAPH_STEPS)]
+        start_state = copy.deepcopy(trainer.model.state_dict())
+        start_opt = copy.deepcopy(trainer.optimizer.state_dict())
+        start_gen = trainer.generator.get_state()
+
+        def run(graphed):
+            trainer.model.load_state_dict(start_state)
+            trainer.optimizer.load_state_dict(copy.deepcopy(start_opt))
+            trainer.generator.set_state(start_gen)
+            eager = mock.patch.object(trainer, "step_graphs", lambda: None)
+            with eager if not graphed else contextlib.nullcontext():
+                losses = [float(trainer.train_step(b)["loss"]) for b in batches]
+            return losses, {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+
+        eager_losses, eager_state = run(False)
+        graphed_losses, graphed_state = run(True)
+        require(trainer.graphs is not None
+                and trainer.graphs.captures == {"embedder": 1, "detector": 1},
+                f"graphed step ({dtype}): captures {trainer.graphs and trainer.graphs.captures}")
+        np.testing.assert_allclose(graphed_losses, eager_losses, rtol=GRAPH_RTOL, atol=0)
+        err = max((graphed_state[k].double() - eager_state[k].double()).abs().max().item()
+                  for k in eager_state)
+        require(err <= GRAPH_ATOL, f"graphed step ({dtype}): weights {err} from the eager step's")
+        walls = defaultdict(list)
+        for graphed in (False, True, True, False):
+            eager = mock.patch.object(trainer, "step_graphs", lambda: None)
+            with eager if not graphed else contextlib.nullcontext():
+                trainer.train_step(batches[0])
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                for b in batches * 5:
+                    trainer.train_step(b)
+                torch.cuda.synchronize()
+            walls["graphed" if graphed else "eager"].append(
+                (time.perf_counter() - start) * 1e3 / (5 * len(batches)))
+        say(f"recipe train step B={TRAIN_B} {dtype}: graphed losses {graphed_losses} = eager"
+            f" {eager_losses} (rtol {GRAPH_RTOL}), weights {err:.3g} apart; wall ms a step, in"
+            f" turns (eager, graphed, graphed, eager): eager {walls['eager']}, graphed"
+            f" {walls['graphed']}")
+        if dtype == "bfloat16":  # the recipe's dtype: the device's share of each step
+            for graphed in (False, True):
+                eager = mock.patch.object(trainer, "step_graphs", lambda: None)
+                with eager if not graphed else contextlib.nullcontext():
+                    kind = "graphed" if graphed else "eager"
+                    profile_run(f"recipe train step B={TRAIN_B} bf16 ({kind})",
+                                statistics.median(walls[kind]),
+                                lambda: trainer.train_step(batches[0]), unit=("train step", 1))
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def recipe_phase(port, seed):
+    """The port's ``run_sup_flagship.sh <dir> yolox-s 1 <RECIPE_ITERS + 1>``
+    through ``sh`` on a toy set from ``make_toyds_big``'s generator
+    (RECIPE_TRAIN + RECIPE_TEST images of 320 x 448): it must exit 0, write
+    the run's files with finite metrics, and report the launches derived
+    from its config: per iteration N_LAYER flash launches, then its final
+    test's conv and flash launches (``sup_test_launches`` at the recipe's
+    episode length and its per-call launches: the yolox-nano embedder and
+    the yolox-s detector on 64 px patches, read from the run's model).
+    Then the kernels at those shapes and the graphed step. Returns the
+    run's launches."""
+    from jolineedle_tpu_torch.scripts.make_toyds_big import make_toyds_big
+
+    phase_start = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_recipe"
+    shutil.rmtree(root, ignore_errors=True)
+    toy = make_toyds_big(root / "toy", n_train=RECIPE_TRAIN, n_test=RECIPE_TEST)
+    env = {**os.environ, "DATASET_DIR": str(toy), "SEED": str(seed), "PYTHONUNBUFFERED": "1"}
+    start = time.perf_counter()
+    proc = subprocess.run(["sh", RECIPE_SCRIPT, str(root / "out"), "yolox-s", "1",
+                           str(RECIPE_ITERS + 1)], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    seconds = time.perf_counter() - start
+    require(proc.returncode == 0, f"recipe: {RECIPE_SCRIPT} exited {proc.returncode}:\n"
+            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    counts = json.loads([ln for ln in lines if ln.startswith("kernel launches: ")][-1]
+                        .split(": ", 1)[1])
+    peak = [ln for ln in lines if ln.startswith("peak device memory: ")][-1]
+    run_dir = root / "out" / "r3_sup_yolox-s"
+    files = {p.name for p in run_dir.iterdir()}
+    require({"config.json", "checkpoint.pt", "train_state.pt", "metrics.json",
+             "best_model.txt"} <= files, f"recipe: run files {sorted(files)}")
+    metrics = json.loads((run_dir / "metrics.json").read_text())
+    require(all(math.isfinite(v) for v in metrics.values())
+            and {"map", "map_multistart_2", "supervised_map"} <= set(metrics),
+            f"recipe: final validation metrics {metrics}")
+
+    train_config, model_config = port.tconfig.config_from_file(run_dir / "config.json")
+    require((model_config.image_processor, model_config.gpt_backbone, model_config.patch_size,
+             train_config.batch_size, model_config.compute_dtype)
+            == ("yolox-s", "yolox-nano", 64, TRAIN_B, "bfloat16"),
+            f"recipe: config {model_config.image_processor}, {model_config.gpt_backbone}")
+    steps = model_config.block_size
+    model = port.GPT.from_config(model_config, port.get_actions_info(train_config)).eval()
+    calls = module_kernel_calls(model, model_config.patch_size)
+    del model
+    per_call = {call: per_kernel(c) for call, c in calls.items()}
+    n_worst = int(train_config.failure_select_rate * RECIPE_TEST)
+    expected = Counter({"flash_attention": RECIPE_ITERS * N_LAYER})
+    expected += Counter(sup_test_launches(RECIPE_TEST, n_worst, steps, per_call))
+    expected = {k: expected.get(k, 0) for k in KERNEL_NAMES}
+    require(counts == expected, f"recipe: kernel launches {counts}, expected {expected}")
+    say(f"recipe: {RECIPE_SCRIPT} <dir> yolox-s 1 {RECIPE_ITERS + 1} in {seconds:.1f} s"
+        f" ({RECIPE_ITERS} iterations of B={TRAIN_B}, {steps} patches of"
+        f" {model_config.patch_size} px, bf16, and the final test of {RECIPE_TEST} images);"
+        f" {peak}; kernel launches {counts} = {RECIPE_ITERS} x {N_LAYER} flash + the final"
+        f" test's {sup_test_launches(RECIPE_TEST, n_worst, steps, per_call)} (per call:"
+        f" {per_call}), as derived; final validation: " + ", ".join(
+            f"{k} {metrics[k]:.4f}" for k in ("map", "map_multistart_2", "supervised_map")))
+    rows = recipe_kernel_rows(port, calls, steps, seed)
+    graphed_against_eager(port, run_dir, toy, seed)
+    say(f"recipe: the phase took {time.perf_counter() - phase_start:.1f} s")
+    return Counter(counts), rows
 
 
 def run_dir_state(run_dir: Path) -> dict:
@@ -3017,6 +3225,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path["resume_jax"] = resume_jax_phase(port, args.seed, toy, args.device_data_cache)
     torch.cuda.empty_cache()
+    by_path["recipe"], recipe_rows = recipe_phase(port, args.seed)
+    torch.cuda.empty_cache()
     by_path["eval"] = eval_phase(port, args.seed, model_dir, sup_run)
     torch.cuda.empty_cache()
     by_path["ddp"] = ddp_phase(port, args.seed, toy)
@@ -3032,8 +3242,8 @@ def main(argv=None) -> int:
         require(launches[name] > 0, f"{name} was launched no time on its path")
     say(f"chip_smoke: every phase passed in {time.perf_counter() - script_start:.1f} s")
 
-    print(json.dumps({"kernels": kernels_json(rows, new_rows, wide_rows, launches, by_path)}),
-          flush=True)
+    print(json.dumps({"kernels": kernels_json(rows, new_rows, wide_rows, recipe_rows, launches,
+                                              by_path)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

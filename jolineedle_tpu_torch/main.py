@@ -50,6 +50,7 @@ window and the tests follow the chunks, and N must divide ``--test-every``
 
 from __future__ import annotations
 
+import json
 import os
 import random
 import sys
@@ -198,5 +199,24 @@ def main(args, device=None):
     return mesh.launch(train_rank, (train_config, model_config, str(args.dataset_dir)), devices)
 
 
+def cli(argv=None):
+    """``python -m jolineedle_tpu_torch.main``: :func:`main` on the parsed
+    command line, on the device that ``JOLINEEDLE_TORCH_DEVICE`` names
+    (``cpu`` runs the plain PyTorch versions, as the recipes' CPU tests
+    do; unset: the GPUs of ``--devices``). On the card it prints, at the
+    end, this process's peak of ``torch.cuda.max_memory_allocated`` and its
+    kernels' launches (the ranks of a data-parallel run count their own)."""
+    result = main(get_args(argv), device=os.environ.get("JOLINEEDLE_TORCH_DEVICE") or None)
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        from .ops import attention, conv
+
+        launches = {fn.__name__: fn.launches for fn in (
+            conv.dwblock_bn_silu, conv.conv3x3_bn_silu, conv.conv3x3, attention.flash_attention)}
+        print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+              " (max_memory_allocated)", flush=True)
+        print(f"kernel launches: {json.dumps(launches)}", flush=True)
+    return result
+
+
 if __name__ == "__main__":
-    main(get_args())
+    cli()

@@ -26,6 +26,7 @@ is differentiated runs PyTorch convs.
 from __future__ import annotations
 
 import math
+from contextvars import ContextVar
 from typing import Optional
 
 import torch
@@ -40,6 +41,10 @@ from .positional import positional_encoding_1d, positional_encoding_2d
 from .yolox import YOLOPAFPN, YOLOX_VARIANTS, NeedleYOLOX
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+#: The CUDA graphs (``train/graphs.py::TrainGraphs``) that run the train-mode
+#: embedder and detector inside a supervised step on the card; None elsewhere.
+TRAIN_GRAPHS: ContextVar = ContextVar("train_graphs", default=None)
 
 
 def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -245,8 +250,10 @@ class GPT(nn.Module):
         B, T = patches.shape[:2]
         flat = self._to_compute(patches.reshape((B * T,) + patches.shape[2:]))
         autograd = train or torch.is_grad_enabled()
+        graphs = TRAIN_GRAPHS.get() if train else None
         if self.gpt_backbone:
-            top = self.gpt_backbone_net(flat, train, autograd)[-1]
+            top = (graphs.embedder(flat) if graphs is not None
+                   else self.gpt_backbone_net(flat, train, autograd)[-1])
         else:
             top = self.yolox.backbone(flat, train, autograd)[-1].detach()
         x = F.conv2d(top, self.embed_fpn_conv.weight.to(top.dtype))
@@ -363,4 +370,7 @@ class GPT(nn.Module):
         ``train``: batch-statistics BatchNorm (the detection loss of a train
         step); the fused kernels run only with neither ``train`` nor grad."""
         autograd = train or torch.is_grad_enabled()
+        graphs = TRAIN_GRAPHS.get() if train else None
+        if graphs is not None:
+            return graphs.detector(self._to_compute(patches)), None
         return self.yolox(self._to_compute(patches), train, autograd)

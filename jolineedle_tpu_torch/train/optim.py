@@ -24,9 +24,9 @@ step, which is optax's ``-lr * (adam + wd * p)`` written in another order.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 
@@ -49,16 +49,29 @@ def param_labels(model, freeze_image_processor: bool, detection_enabled: bool) -
 def lr_at(lr: float, update: int, schedule: str, warmup: int, decay: int) -> float:
     """optax ``warmup_cosine_decay_schedule`` to 5 % of ``lr`` (``optim.py:
     74-83``), or ``lr`` for the constant schedule; ``update`` counts
-    optimizer updates."""
+    optimizer updates.
+
+    In float32, by optax's formulas as XLA compiles them: each multiply-add
+    fused (one rounding; here exact in float64, then rounded once) and a
+    division by a constant taken as a product with its reciprocal. Its warmup
+    computes ``(0 - lr) * (1 - t / warmup) + lr``, which cancels early in
+    the warmup, so the lr the JAX package applies there strays from ``lr *
+    t / warmup`` by up to 1e-5 relative; the port applies the same one."""
     if schedule != "cosine":
         return lr
+    f32 = np.float32
+
+    def fma(a, b, c):
+        return f32(np.float64(f32(a)) * np.float64(f32(b)) + np.float64(f32(c)))
+
     warmup = max(0, warmup)
-    decay_steps = max(decay, warmup + 1)
-    if warmup > 0 and update < warmup:
-        return lr * update / warmup
-    frac = min(max(update - warmup, 0), decay_steps - warmup) / (decay_steps - warmup)
-    end = 0.05 * lr
-    return end + (lr - end) * 0.5 * (1.0 + math.cos(math.pi * frac))
+    span = max(decay, warmup + 1) - warmup
+    if update < warmup:
+        return float(fma(-lr, fma(-f32(max(update, 0)), f32(1) / f32(warmup), 1), lr))
+    angle = f32(min(update - warmup, span)) * (f32(np.pi) * (f32(1) / f32(span)))
+    cosine = f32(0.5) * (f32(1) + f32(np.cos(np.float64(angle))))
+    alpha = 0.05 * lr / lr
+    return float(f32(lr) * fma(1 - alpha, cosine, alpha))
 
 
 class Optimizer:

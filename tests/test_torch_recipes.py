@@ -1,0 +1,389 @@
+"""The port's training recipes (``jolineedle_tpu_torch/scripts/run_*.sh``)
+against the JAX package's (``scripts/run_*.sh``).
+
+- Each port recipe is the JAX script with ``python -m
+  jolineedle_tpu_torch.main`` in place of ``python main.py``: the ``exec``
+  lines of both files give the same flags in the same order, and every
+  other line of code is the same but ``DATASET_DIR``'s default (the port's
+  ``make_toyds_big`` writes ``toyds_big`` in the working directory).
+- The flagship recipe's schedule: the port's ``lr_at`` at every update of
+  the 20,000, for both groups, against the learning rate the JAX package's
+  optax ``adamw`` applies (``make_optimizer`` of the recipe's flags, read
+  from its update of a unit parameter at weight decay 1), within
+  ``LR_RTOL``.
+- Twelve iterations of the supervised recipe at a small size (the default
+  yolox-nano pairing, gpt-nano, patch 64, B = 2, float32, dropout 0, no
+  translate, warmup 3 of 12 updates: the run crosses into the cosine
+  decay): at each, the JAX package's jitted train step (in float64) and
+  the port's ``train_step`` from the JAX state the iteration starts from,
+  on the same batch, the JAX run's photometric augmentations replayed into
+  the port: the loss terms within ``LOSS_RTOL``, then the weights, the BN
+  running statistics and the AdamW moments and counts against JAX's.
+- Each recipe runs end to end on the CPU (``JOLINEEDLE_TORCH_DEVICE=cpu``,
+  ``MAX_ITERS`` 2 on a small toy set; the fine-tune from the flagship's
+  run) and leaves the run directory's files and the final validation's
+  metrics; ``time_recipe.pace`` reads a run's pace and tests.
+"""
+
+import json
+import os
+import re
+import shlex
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from flax import serialization
+
+import main as jax_main
+from jolineedle_tpu.config import args_to_config, get_args
+from jolineedle_tpu.env import get_actions_info
+from jolineedle_tpu.models.gpt import GPT as JaxGPT
+from jolineedle_tpu.ops.augment import detection_augment as jax_detection_augment
+from jolineedle_tpu.ops.augment import to_unit_float
+from jolineedle_tpu.train.batching import build_supervised_batch
+from jolineedle_tpu.train.optim import make_optimizer
+from jolineedle_tpu.train.supervised import SupervisedTrainer as JaxSupervised
+from jolineedle_tpu_torch import config as tconfig
+from jolineedle_tpu_torch.main import build_trainer
+from jolineedle_tpu_torch.checkpoint import flax_optimizer_state, optimizer_to_flax
+from jolineedle_tpu_torch.models.bridge import flax_to_torch, gpt_param_entries, torch_to_flax
+from jolineedle_tpu_torch.parallel import mesh
+from jolineedle_tpu_torch.scripts import make_toyds_big, time_recipe
+from jolineedle_tpu_torch.train import supervised as tsup
+from jolineedle_tpu_torch.train.optim import Optimizer, lr_at
+
+# The suite runs in several test processes that share the cores: one PyTorch
+# intra-op thread each keeps their thread pools from spinning against each other.
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+RECIPES = ("run_sup_flagship.sh", "run_rl_finetune_stop.sh", "run_rl_scratch_stop.sh")
+JAX_ENTRY = ["python", "main.py"]
+PORT_ENTRY = ["python", "-m", "jolineedle_tpu_torch.main"]
+DATASET_LINE = "DATASET_DIR=${DATASET_DIR:-%s}"
+LR_RTOL = 1e-6
+LOSS_RTOL = 1e-3
+# After each step, from the same state (measured over the 12: 2.7e-4, 1.6e-2,
+# 0.73 lr and 0.7 %): BN statistics and AdamW moments within a share of their
+# leaf's largest value; every weight within STEP_TOL learning rates of JAX's,
+# and all but FLIP_SHARE of them within STATE_ATOL.
+STATS_RTOL, MOMENT_RTOL, STEP_TOL, FLIP_SHARE, STATE_ATOL = 1e-3, 3e-2, 1.0, 2e-2, 1e-6
+N_ITERS = 12
+LOSS_TERMS = ("loss", "action_loss", "yolo_loss", "yolo_iou_loss", "yolo_conf_loss",
+              "yolo_cls_loss", "yolo_l1_loss")
+
+
+def _code(path: Path) -> list:
+    """The script's lines of code: continuations joined, comments and blank
+    lines dropped."""
+    lines = re.sub(r"\\\n", " ", path.read_text()).splitlines()
+    return [" ".join(line.split()) for line in lines
+            if line.strip() and not line.strip().startswith("#")]
+
+
+def _exec_args(lines: list) -> list:
+    (line,) = [line for line in lines if line.startswith("exec ")]
+    return shlex.split(line)[1:]
+
+
+@pytest.mark.parametrize("name", RECIPES)
+def test_recipe_passes_the_jax_scripts_flags(name):
+    jax_code = _code(ROOT / "scripts" / name)
+    port_code = _code(ROOT / "jolineedle_tpu_torch" / "scripts" / name)
+    jax_args, port_args = _exec_args(jax_code), _exec_args(port_code)
+    assert jax_args[:2] == JAX_ENTRY and port_args[:3] == PORT_ENTRY
+    assert port_args[3:] == jax_args[2:]
+    assert "--dataset-dir" in port_args and "$DATASET_DIR" in port_args
+    # Every other line alike, but the dataset's default directory.
+    (jax_line,) = [line for line in jax_code if line.startswith("DATASET_DIR=")]
+    jax_prefix, jax_suffix = DATASET_LINE.split("%s")
+    assert jax_line.startswith(jax_prefix + "/") and jax_line.endswith("/toyds_big" + jax_suffix)
+    assert DATASET_LINE % make_toyds_big.get_args([]).out_dir in port_code
+    rest = lambda code: [line for line in code
+                         if not line.startswith(("exec ", "DATASET_DIR="))]
+    assert rest(port_code) == rest(jax_code)
+
+
+def _recipe_argv(name: str, values: dict, drop=()) -> list:
+    """The recipe's flags with its shell variables set to ``values``."""
+    args = _exec_args(_code(ROOT / "jolineedle_tpu_torch" / "scripts" / name))[3:]
+    out = []
+    for arg in args:
+        if arg in drop:
+            continue
+        value = re.sub(r"\$(\w+)", lambda m: values[m.group(1)], arg)
+        # An unquoted variable splits into words, as sh splits it.
+        out += value.split() if arg.startswith("$") else [value]
+    return out
+
+
+FLAGSHIP = {"SEED": "1", "DATASET_DIR": "/nonexistent", "WORK_DIR": "/nonexistent",
+            "MAX_ITERS": "20000", "DETECTOR": "yolox-s", "SPD": "1",
+            "BACKBONE_FLAGS": "--image-processor yolox-s --gpt-backbone yolox-nano"}
+
+
+def test_flagship_schedule_equals_optax_over_20000_updates():
+    argv = _recipe_argv("run_sup_flagship.sh", FLAGSHIP)
+    j_cfg, _ = args_to_config(get_args(argv))
+    t_cfg, _ = tconfig.args_to_config(tconfig.get_args(argv))
+    assert (t_cfg.lr_warmup_iters, t_cfg.lr_decay_iters) == (500, 20000)
+    n = t_cfg.lr_decay_iters + 1  # updates 0 .. 20,000: warmup, decay and its end
+
+    # JAX: the lr each update applies, from adamw's update of a unit
+    # parameter with a zero gradient at weight decay 1 (-lr * (0 + 1 * 1)).
+    params = {"h": jnp.ones((1,), jnp.float32), "yolox": jnp.ones((1,), jnp.float32)}
+    tx = make_optimizer(params, learning_rate=j_cfg.learning_rate, yolo_lr=j_cfg.yolo_lr,
+                        weight_decay=1.0, lr_schedule=j_cfg.lr_schedule,
+                        lr_warmup_iters=j_cfg.lr_warmup_iters,
+                        lr_decay_iters=j_cfg.lr_decay_iters)
+    zeros = jax.tree_util.tree_map(jnp.zeros_like, params)
+
+    def body(state, _):
+        updates, state = tx.update(zeros, state, params)
+        return state, (-updates["h"][0], -updates["yolox"][0])
+
+    _, (gpt_lr, yolo_lr) = jax.jit(lambda s: jax.lax.scan(body, s, None, length=n))(
+        tx.init(params))
+
+    # The port: the optimizer of the same flags sets each group's lr by lr_at.
+    model = torch.nn.ModuleDict({"h": torch.nn.Linear(1, 1), "yolox": torch.nn.Linear(1, 1)})
+    opt = Optimizer(model, t_cfg.learning_rate, t_cfg.yolo_lr, lr_schedule=t_cfg.lr_schedule,
+                    lr_warmup_iters=t_cfg.lr_warmup_iters, lr_decay_iters=t_cfg.lr_decay_iters)
+    groups = {g["label"]: g["base_lr"] for g in opt.adamw.param_groups}
+    assert groups == {"gpt": 2e-4, "yolox": 1e-4}
+    for label, want in (("gpt", gpt_lr), ("yolox", yolo_lr)):
+        got = np.array([lr_at(groups[label], u, *opt.schedule) for u in range(n)])
+        want = np.asarray(want, np.float64)
+        assert want[0] == 0 and want[500] == pytest.approx(groups[label], rel=1e-6)
+        assert want[-1] == pytest.approx(0.05 * groups[label], rel=1e-6)
+        np.testing.assert_allclose(got, want, rtol=LR_RTOL, atol=0, err_msg=label)
+
+
+@pytest.fixture(scope="module")
+def toy(tmp_path_factory):
+    root = tmp_path_factory.mktemp("recipes")
+    return make_toyds_big.make_toyds_big(root / "toy", n_train=4, n_test=2)
+
+
+def _trajectory_argv(toy: Path, work: Path) -> list:
+    values = {**FLAGSHIP, "DATASET_DIR": str(toy), "WORK_DIR": str(work),
+              "MAX_ITERS": str(N_ITERS + 1), "BACKBONE_FLAGS": "--image-processor yolox-nano",
+              "DETECTOR": "yolox-nano"}
+    return _recipe_argv("run_sup_flagship.sh", values, drop=("--augment-translate",)) + [
+        "--batch-size", "2", "--compute-dtype", "float32", "--dropout", "0.0",
+        "--lr-warmup-iters", "3", "--devices", "0"]
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, prefix + (k,)) if hasattr(v, "items") else {prefix + (k,): v})
+    return out
+
+
+def _tree(tree, dtype):
+    """A copy of a train state's tree (numpy leaves) with its floating
+    leaves in ``dtype``: the host views of a state share its buffers, which
+    the JAX step donates and the port's step updates in place."""
+    return jax.tree_util.tree_map(
+        lambda x: np.array(x, dtype) if np.issubdtype(np.asarray(x).dtype, np.floating)
+        else np.array(x), tree)
+
+
+def _trajectory(toy: Path, work: Path, monkeypatch) -> list:
+    """Twelve iterations of the JAX trainer's step, in float64, and at each
+    one the port's float32 ``train_step`` from the JAX state that the
+    iteration starts from (weights, statistics, AdamW moments and counts,
+    loaded as ``--resume-training`` loads a JAX train state), on the same
+    batch and the same augmented patches. Returns, per iteration, the loss
+    terms (JAX, port) and the states after it (JAX's, the port's), as flax
+    state dicts."""
+    argv = _trajectory_argv(toy, work)
+    j_cfg, j_model_cfg = args_to_config(get_args(argv))
+    assert (j_cfg.lr_schedule, j_cfg.lr_decay_iters, j_cfg.translations) == ("cosine", 13, False)
+    j_train, j_test = jax_main.build_both_datasets(j_cfg, j_model_cfg, toy)
+    jtrainer = JaxSupervised(j_cfg, JaxGPT.from_config(j_model_cfg, get_actions_info(j_cfg)),
+                             None, j_train, j_test)
+    t_cfg, t_model_cfg = tconfig.args_to_config(tconfig.get_args(argv))
+    port = build_trainer(mesh.single("cpu"), t_cfg, t_model_cfg, toy, log=False)
+    entries = gpt_param_entries(port.model)
+
+    replay = []
+
+    def replayed(generator, raw):
+        want_raw, augmented = replay.pop(0)
+        assert torch.equal(raw, torch.from_numpy(want_raw))
+        return torch.from_numpy(augmented)
+
+    monkeypatch.setattr(tsup, "detection_augment", replayed)
+    augment = jax.jit(lambda k, x: jax_detection_augment(k, to_unit_float(x)))
+    # The JAX loop's picks and keys (supervised.py:285-297, :360-368).
+    order_rng = np.random.default_rng(j_cfg.seed)
+    key = jax.random.PRNGKey(j_cfg.seed)
+    index_pool, out = [], []
+    with jax.enable_x64():
+        jtrainer.model = jtrainer.model.clone(compute_dtype=jnp.float64)
+        jtrainer._train_step = jtrainer._build_train_step()
+        state = jax.tree_util.tree_map(jnp.asarray, _tree(
+            jax.device_get(jtrainer.state), np.float64))
+        for it in range(1, N_ITERS + 1):
+            start = _tree(serialization.to_state_dict(jax.device_get(state)), np.float32)
+            flax_to_torch({"params": start["params"], "batch_stats": start["batch_stats"]},
+                          port.model)
+            port.optimizer.load_state_dict(
+                flax_optimizer_state(start["opt_state"], port.optimizer, entries))
+            port.step = int(start["step"])
+
+            while len(index_pool) < j_cfg.batch_size:
+                index_pool += order_rng.permutation(len(j_train)).tolist()
+            indices, index_pool = index_pool[:j_cfg.batch_size], index_pool[j_cfg.batch_size:]
+            batch = build_supervised_batch(j_train, indices, j_cfg,
+                                           np.random.default_rng(j_cfg.seed + 1 + it))
+            key, step_key = jax.random.split(key)
+            k_aug1, k_aug2, _ = jax.random.split(step_key, 3)
+            replay[:] = [(batch[name], np.asarray(augment(k, batch[name]), np.float32))
+                         for name, k in (("patches", k_aug1), ("patches_yolox", k_aug2))]
+            state, j_metrics = jtrainer._train_step(
+                state, jax.tree_util.tree_map(jnp.asarray, batch), step_key, None)
+            t_metrics = port.train_step(batch)
+            assert not replay
+            want = _tree(serialization.to_state_dict(jax.device_get(state)), np.float64)
+            got = _tree({**torch_to_flax(port.model.state_dict(), port.model),
+                         "opt_state": optimizer_to_flax(port.optimizer, entries),
+                         "step": port.step}, np.float64)
+            out.append(({name: (float(j_metrics[name]), float(t_metrics[name]))
+                         for name in LOSS_TERMS}, want, got))
+    return out
+
+
+def test_supervised_trajectory_equals_jax(toy, tmp_path, monkeypatch):
+    """The JAX reference runs in float64 (``jax.enable_x64`` and a float64
+    compute dtype on the same weights), as ``test_torch_supervised_loss.py``
+    holds the loss; the port in float32. Each iteration starts the port
+    from the JAX state (a free-running float32 run cannot be held: AdamW's
+    first updates move every weight by about the learning rate along the
+    sign of its gradient, and the gradients that float32 leaves uncertain
+    in sign, about 150 of 1.0 M at 1e-4 of their leaf's largest, turn into
+    steps of opposite sign; from the first update at the full rate SimOTA
+    assigns other anchors and the runs part, by 0.2 % at iteration 4 and
+    10-30 % after, also between the float64 port and JAX)."""
+    steps = _trajectory(toy, tmp_path, monkeypatch)
+    assert len(steps) == N_ITERS
+    for it, (terms, want, got) in enumerate(steps, start=1):
+        for name, (j, t) in terms.items():
+            np.testing.assert_allclose(t, j, rtol=LOSS_RTOL, atol=0,
+                                       err_msg=f"iteration {it} {name}")
+        assert got["step"] == int(want["step"]) == it
+        w, g = _flat(want), _flat(got)
+        assert g.keys() == w.keys()
+        lr = lr_at(2e-4, it - 1, "cosine", 3, N_ITERS + 1)
+        flips = total = 0
+        for path, value in w.items():
+            value = np.asarray(value, np.float64)
+            err = np.abs(np.asarray(g[path], np.float64) - value)
+            where = f"iteration {it} {'/'.join(map(str, path))}"
+            if path[0] == "params":  # AdamW moves a weight by about lr at most
+                assert err.max() <= STEP_TOL * lr + STATE_ATOL, where
+                flips, total = flips + np.sum(err > STATE_ATOL), total + err.size
+            elif path[0] == "batch_stats":
+                assert err.max() <= STATS_RTOL * np.abs(value).max() + STATE_ATOL, where
+            else:  # the AdamW moments and counts
+                assert err.max() <= MOMENT_RTOL * np.abs(value).max(), where
+        assert flips <= FLIP_SHARE * total, f"iteration {it}: {flips} of {total} weights"
+
+
+def _run_recipe(name: str, args: list, tmp: Path, env: dict) -> subprocess.CompletedProcess:
+    """``sh`` the port's recipe ``name`` with ``args`` on the CPU
+    (``JOLINEEDLE_TORCH_DEVICE=cpu``), this interpreter as its ``python``."""
+    bin_dir = tmp / "bin"
+    bin_dir.mkdir(exist_ok=True)
+    (bin_dir / "python").write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    (bin_dir / "python").chmod(0o755)
+    env = {**os.environ, "PATH": f"{bin_dir}{os.pathsep}{os.environ['PATH']}",
+           "PYTHONPATH": str(ROOT), "JOLINEEDLE_TORCH_DEVICE": "cpu", "OMP_NUM_THREADS": "1",
+           **env}
+    proc = subprocess.run(["sh", str(ROOT / "jolineedle_tpu_torch" / "scripts" / name), *args],
+                          cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert "peak device memory" not in proc.stdout  # the CPU has none
+    return proc
+
+
+RUN_FILES = {"config.json", "checkpoint.pt", "checkpoint_best.pt", "train_state.pt",
+             "metrics.json", "best_model.txt", "visdom.pkl"}
+
+
+def _final_metrics(run_dir: Path, names) -> dict:
+    assert {p.name for p in run_dir.iterdir()} >= RUN_FILES
+    metrics = json.loads((run_dir / "metrics.json").read_text())
+    for name in names:
+        assert 0.0 <= metrics[name] <= 1.0, name
+    return metrics
+
+
+@pytest.fixture(scope="module")
+def flagship_run(toy, tmp_path_factory):
+    """``SEED=3 sh run_sup_flagship.sh <dir> yolox-s 1 2``: one iteration,
+    then the final validation from the last checkpoint (no test ran before
+    it)."""
+    tmp = tmp_path_factory.mktemp("flagship")
+    proc = _run_recipe("run_sup_flagship.sh", [str(tmp / "out"), "yolox-s", "1", "2"], tmp,
+                       {"DATASET_DIR": str(toy), "SEED": "3"})
+    return proc, tmp / "out" / "r3_sup_yolox-s"
+
+
+def test_flagship_recipe_runs_end_to_end_on_cpu(flagship_run):
+    proc, run_dir = flagship_run
+    assert "Could not reload best checkpoint for final test" in proc.stdout
+    config = json.loads((run_dir / "config.json").read_text())
+    assert config["train"]["seed"] == 3 and config["train"]["batch_size"] == 16
+    assert config["model"]["image_processor"] == "yolox-s"
+    metrics = _final_metrics(run_dir, ("map", "map_multistart_2", "supervised_map",
+                                       "prop_patches_found"))
+    assert metrics["episode_length"] == 8.0
+
+
+def test_rl_finetune_recipe_runs_from_the_flagship_run(toy, flagship_run, tmp_path):
+    """``run_rl_finetune_stop.sh <dir> <flagship run> yolox-s 2`` with
+    ``EXTRA_FLAGS``: the 8-action supervised weights grafted into the
+    9-action STOP model, two REINFORCE iterations in float32, the final
+    validation."""
+    _, sup_dir = flagship_run
+    proc = _run_recipe("run_rl_finetune_stop.sh",
+                       [str(tmp_path / "out"), str(sup_dir), "yolox-s", "2"], tmp_path,
+                       {"DATASET_DIR": str(toy), "EXTRA_FLAGS": "--compute-dtype float32"})
+    assert f"Warm-starting params from {sup_dir}/checkpoint_best.pt" in proc.stdout
+    assert "grafted overlap (8, 48)" in proc.stdout
+    run_dir = tmp_path / "out" / "r3_rlft_yolox-s"
+    config = json.loads((run_dir / "config.json").read_text())
+    assert config["train"]["compute_dtype"] == "float32" and config["train"]["stop_enabled"]
+    _final_metrics(run_dir, ("map", "prop_patches_found", "stop_used"))
+
+
+def test_rl_scratch_recipe_runs_end_to_end_on_cpu(toy, tmp_path):
+    """``run_rl_scratch_stop.sh <dir> 2``: two from-scratch REINFORCE
+    iterations with STOP, the final validation."""
+    _run_recipe("run_rl_scratch_stop.sh", [str(tmp_path / "out"), "2"], tmp_path,
+                {"DATASET_DIR": str(toy)})
+    _final_metrics(tmp_path / "out" / "r3_scratch_stop", ("map", "prop_patches_found"))
+
+
+def test_time_recipe_reads_the_pace_between_tests():
+    """``time_recipe.pace``: the median seconds an iteration over the spans
+    between printed iterations that hold no test, and each test's excess;
+    a recipe prints every 256 iterations and tests every 2,500."""
+    stamps = [(256 * k, 10.0 + 0.08 * 256 * k) for k in range(1, 21)]
+    # The test at 2,500 falls between 2,304 and 2,560, that at 5,000
+    # between 4,864 and 5,120: 7.5 and 3.25 s late from there on.
+    stamps = [(i, t + 7.5 * (i > 2500) + 3.25 * (i > 5000)) for i, t in stamps]
+    out = time_recipe.pace(stamps, 2500)
+    assert out["s_per_iter"] == pytest.approx(0.08)
+    assert out["s_per_iter_spans"] == 17
+    assert out["test_s"] == pytest.approx([7.5, 3.25])
