@@ -140,6 +140,24 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    graphs (``train/graphs.py``) against the eager step from one state on the
    same batches, in float32 and bfloat16 (losses within rtol 1e-6, weights
    within 1e-6 after 2 steps), with each one's wall ms in turns;
+11d. rlft: the port's ``run_rl_finetune_stop.sh <dir> <11c's run> yolox-s
+   8`` through ``sh`` on 11c's toy set: the supervised 8-action head
+   grafted onto the 9-action STOP model, bf16, B = 16, episodes of 20
+   patches of 64 px, accumulation 4 in chunks of 4, two windows. It exits 0,
+   writes its run files with finite final-validation metrics, and its
+   launches are what its config implies: per iteration the sampled
+   rollout's 20 embedder calls (240 ``dwblock_bn_silu``, 20
+   ``conv3x3_bn_silu``; from the second iteration a CUDA graph's replay,
+   counted at each replay) and 3 flash launches in the recompute, then its
+   final test's (``rl_test_launches`` at the recipe's shapes). Then the
+   embedder's kernels at the rollout's 16 patches against their plain
+   versions, and the graphed REINFORCE step (rollout, the recompute's
+   embedder and the detector as CUDA graphs, ``train/graphs.py``) against
+   the eager one from one state over one window of 4 iterations and its
+   update: float32 losses equal, and after the update every weight within
+   2 learning rates and all but 1 % within 1e-7; bf16 losses within rtol
+   1e-6; each run's launches as derived; each one's wall ms in turns and,
+   in bf16, its busy share;
 12. eval and report: a toy test set of 10 images of 3 x 3 patches (1344
    px), so that ``--failure-select-rate`` 0.1 picks one worst image.
    ``--measure-flops`` through the train CLI on the card and on the CPU
@@ -348,6 +366,18 @@ RECIPE_ITERS, RECIPE_TRAIN, RECIPE_TEST, GRAPH_STEPS = 3, 16, 10, 2
 # weights (the same kernels on the same tensors; cuDNN's backward sums in
 # its own order).
 GRAPH_RTOL, GRAPH_ATOL = 1e-6, 1e-6
+# The fine-tune phase: the port's run_rl_finetune_stop.sh (yolox-s) for
+# RLFT_ITERS iterations (two accumulation windows) from the recipe phase's
+# run on its toy set; then the graphed step against the eager one over one
+# window of RLFT_WINDOW iterations: float32 losses equal; after the
+# window's update (AdamW's first: it moves each weight by about lr along
+# its gradient's sign, and the graphs' backward sums some gradients in
+# another order, so a weight whose gradient is ~0 can step the other way)
+# every weight within RLFT_STEP_TOL learning rates and all but
+# RLFT_FLIP_SHARE of them within RLFT_ATOL; bf16 losses within GRAPH_RTOL.
+RLFT_SCRIPT = "jolineedle_tpu_torch/scripts/run_rl_finetune_stop.sh"
+RLFT_ITERS, RLFT_WINDOW = 8, 4
+RLFT_STEP_TOL, RLFT_ATOL, RLFT_FLIP_SHARE = 2.0, 1e-7, 1e-2
 # The plain 3x3 conv: the smoke script's default and the nano stem.
 PLAIN_CONV_SHAPES = [(8, 56, 56, 16, 32), (N_PATCHES, PATCH // 2, PATCH // 2, 12, 16)]
 # The dense 3x3 convs of a wider variant, held and timed beside the path.
@@ -1855,7 +1885,8 @@ def sup_test_launches(n_ids: int, n_worst: int = 0, steps: int = STEPS,
     return out
 
 
-def rl_test_launches(n_ids: int, n_worst: int = 0) -> dict:
+def rl_test_launches(n_ids: int, n_worst: int = 0, steps: int = STEPS,
+                     max_det: int = MAX_DET_PATCHES, per_call=EXPECTED_PER_CALL) -> dict:
     """The kernel launches of one REINFORCE ``test()`` on ``n_ids`` test
     images of one shape, from ``train/reinforce.py`` and
     ``train/trainer.py``: the eval rollouts in chunks of at most EVAL_CHUNK
@@ -1864,12 +1895,14 @@ def rl_test_launches(n_ids: int, n_worst: int = 0) -> dict:
     episodes and the positive patches' (MAX_DET_PATCHES an image) in chunks
     of EVAL_CHUNK images, one detector call each; and per worst image its
     own rollout, trajectory detection and positive-patch detection (every
-    toy image holds a box, so it has a positive patch)."""
-    calls = {"embedder": (math.ceil(n_ids / EVAL_CHUNK) + n_worst) * STEPS,
-             "detector": math.ceil(n_ids / (DET_EVAL_PATCHES // (STEPS + 1)))
-             + math.ceil(n_ids / min(EVAL_CHUNK, DET_EVAL_PATCHES // MAX_DET_PATCHES))
+    toy image holds a box, so it has a positive patch). ``steps``,
+    ``max_det`` and ``per_call``: another config's episode length, detector
+    patches an image and conv launches per call."""
+    calls = {"embedder": (math.ceil(n_ids / EVAL_CHUNK) + n_worst) * steps,
+             "detector": math.ceil(n_ids / (DET_EVAL_PATCHES // (steps + 1)))
+             + math.ceil(n_ids / min(EVAL_CHUNK, DET_EVAL_PATCHES // max_det))
              + 2 * n_worst}
-    return conv_launches(calls)
+    return conv_launches(calls, per_call)
 
 
 def sup_train_phase(port, seed, toy, cache):
@@ -2157,22 +2190,24 @@ NMS_SIZES = (64, 1000)
 
 
 # --- phase 11c: the recipe ---------------------------------------------------------------
-def recipe_kernel_rows(port, calls, steps, seed):
+def recipe_kernel_rows(port, calls, steps, seed, sizes=None):
     """Each kernel at every shape the recipe's tests launch it, both dtypes,
     against its plain version: the embedder's at EVAL_CHUNK patches (one
     eval rollout step) and the detector's at one eval detection chunk
-    (``DET_EVAL_PATCHES // steps`` episodes of ``steps`` patches)."""
+    (``DET_EVAL_PATCHES // steps`` episodes of ``steps`` patches); or at
+    ``sizes``, ``[(row label, call, patches)]``."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     det_n = min(EVAL_CHUNK, DET_EVAL_PATCHES // steps) * steps
     rows = []
-    for call, n in (("embedder", EVAL_CHUNK), ("detector", det_n)):
+    for label, call, n in sizes or (("embedder", "embedder", EVAL_CHUNK),
+                                    ("detector", "detector", det_n)):
         for (name, H, W, C, K), per in sorted(calls[call].items()):
             for dtype in (torch.float32, torch.bfloat16):
                 r = KERNELS[name]["measure"](port.kconv, H, W, C, K, dtype, gen, n=n)
-                r.update(name=name, call=call, shape=[n, H, W, C, K],
+                r.update(name=name, call=label, shape=[n, H, W, C, K],
                          dtype=DTYPE_NAMES[dtype], per_call=per)
                 rows.append(r)
-                say(f"recipe kernel {name} ({call}, {per} a call) x[{n},{H},{W},{C}]->{K}"
+                say(f"recipe kernel {name} ({label}, {per} a call) x[{n},{H},{W},{C}]->{K}"
                     f" {DTYPE_NAMES[dtype]}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
                     f" cuDNN {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
                     f" ({r['bound_by']}), max |err| {r['max_abs_err']:.3g}")
@@ -2214,7 +2249,7 @@ def graphed_against_eager(port, run_dir, toy, seed):
         eager_losses, eager_state = run(False)
         graphed_losses, graphed_state = run(True)
         require(trainer.graphs is not None
-                and trainer.graphs.captures == {"embedder": 1, "detector": 1},
+                and trainer.graphs.captures == {"embedder": 1, "detector": 1, "rollout": 0},
                 f"graphed step ({dtype}): captures {trainer.graphs and trainer.graphs.captures}")
         np.testing.assert_allclose(graphed_losses, eager_losses, rtol=GRAPH_RTOL, atol=0)
         err = max((graphed_state[k].double() - eager_state[k].double()).abs().max().item()
@@ -2311,6 +2346,172 @@ def recipe_phase(port, seed):
     rows = recipe_kernel_rows(port, calls, steps, seed)
     graphed_against_eager(port, run_dir, toy, seed)
     say(f"recipe: the phase took {time.perf_counter() - phase_start:.1f} s")
+    return Counter(counts), rows, (run_dir, toy)
+
+
+# --- phase 11d: the fine-tune -------------------------------------------------------------
+def rlft_graphed_against_eager(port, run_dir, toy, seed, per_iter):
+    """The fine-tune's train step with its CUDA graphs (the rollout, the
+    recompute's embedder, the detector: ``train/graphs.py``) against the
+    eager step, from one state on the same batches over RLFT_WINDOW
+    iterations (one accumulation window and its update, the optimizer's
+    first), in float32 (losses equal; weights by RLFT_STEP_TOL and
+    RLFT_FLIP_SHARE) and in bfloat16 as the recipe runs (losses within
+    GRAPH_RTOL), each run launching ``per_iter`` an iteration; then the
+    wall ms of a step each way, in turns, and in bfloat16 each one's busy
+    share."""
+    from jolineedle_tpu_torch.parallel import mesh
+
+    flags_train, flags_model = port.tconfig.config_from_file(run_dir / "config.json")
+    for dtype in ("float32", "bfloat16"):
+        train_config, model_config = copy.deepcopy(flags_train), copy.deepcopy(flags_model)
+        model_config.compute_dtype = dtype
+        train_config.work_dir = str(toy.parent / "rlft_graphs")
+        trainer = port.build_trainer(mesh.single(torch.device(DEVICE)), train_config,
+                                     model_config, toy, log=False)
+        trainer.pool = trainer.train_pool()
+        require(trainer.pool is not None and trainer.optimizer.every_k == RLFT_WINDOW,
+                f"rlft ({dtype}): the pool and a window of {RLFT_WINDOW}")
+        rng = np.random.default_rng(seed)
+        n_train = len(trainer.train_dataset)
+        batches = [trainer.build_batch(rng.integers(0, n_train, TRAIN_B).tolist(), seed + i)
+                   for i in range(RLFT_WINDOW)]
+        start_state = copy.deepcopy(trainer.model.state_dict())
+        start_opt = copy.deepcopy(trainer.optimizer.state_dict())
+        start_gen = trainer.generator.get_state()
+        eager = lambda graphed: (contextlib.nullcontext() if graphed
+                                 else mock.patch.object(trainer, "step_graphs", lambda: None))
+
+        def run(graphed):
+            kind = "graphed" if graphed else "eager"
+            trainer.model.load_state_dict(start_state)
+            trainer.optimizer.load_state_dict(copy.deepcopy(start_opt))
+            trainer.generator.set_state(start_gen)
+            reset_launches(port)
+            with eager(graphed):
+                losses = [float(trainer.train_step(b)["loss"]) for b in batches]
+            torch.cuda.synchronize()
+            check_launches(port, f"rlft: {RLFT_WINDOW} {kind} steps ({dtype})",
+                           {k: RLFT_WINDOW * n for k, n in per_iter.items()})
+            require(trainer.optimizer.updates == start_opt["updates"] + 1
+                    and trainer.optimizer.mini_step == 0, f"rlft: {kind} window's update")
+            return losses, {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+
+        eager_losses, eager_state = run(False)
+        graphed_losses, graphed_state = run(True)
+        require(trainer.graphs is not None and trainer.graphs.captures
+                == {"embedder": 1, "detector": 1, "rollout": 1},
+                f"rlft ({dtype}): captures {trainer.graphs and trainer.graphs.captures}")
+        params = {name for name, _ in trainer.model.named_parameters()}
+        diffs = {k: (graphed_state[k].double() - eager_state[k].double()).abs()
+                 for k in eager_state}
+        err = max(d.max().item() for d in diffs.values())
+        lr = max(g["lr"] for g in trainer.optimizer.adamw.param_groups)
+        step_err = max(diffs[k].max().item() for k in params) / lr
+        apart = sum(int((diffs[k] > RLFT_ATOL).sum()) for k in params)
+        share = apart / sum(diffs[k].numel() for k in params)
+        if dtype == "float32":
+            require(graphed_losses == eager_losses and step_err <= RLFT_STEP_TOL
+                    and share <= RLFT_FLIP_SHARE,
+                    f"rlft (float32): graphed losses {graphed_losses}, eager {eager_losses};"
+                    f" weights up to {step_err:.3g} lr apart (at most {RLFT_STEP_TOL}), {share:.3g}"
+                    f" of them beyond {RLFT_ATOL} (at most {RLFT_FLIP_SHARE})")
+        else:
+            np.testing.assert_allclose(graphed_losses, eager_losses, rtol=GRAPH_RTOL, atol=0)
+        walls = defaultdict(list)
+        for graphed in (False, True, True, False):
+            with eager(graphed):
+                trainer.train_step(batches[0])
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                for b in batches:
+                    trainer.train_step(b)
+                torch.cuda.synchronize()
+            walls["graphed" if graphed else "eager"].append(
+                (time.perf_counter() - start) * 1e3 / len(batches))
+        say(f"rlft train step B={TRAIN_B} {dtype}: graphed losses {graphed_losses} = eager"
+            f" {eager_losses}; after the window's update the state {err:.3g} apart, the weights"
+            f" up to {step_err:.3g} lr ({lr:g}), {apart} of them ({share:.3g}) beyond"
+            f" {RLFT_ATOL}; wall ms a step, in turns (eager, graphed, graphed, eager): eager"
+            f" {walls['eager']}, graphed {walls['graphed']}")
+        if dtype == "bfloat16":  # the recipe's dtype: the device's share of each step
+            for graphed in (False, True):
+                kind = "graphed" if graphed else "eager"
+                with eager(graphed):
+                    profile_run(f"rlft train step B={TRAIN_B} bf16 ({kind})",
+                                statistics.median(walls[kind]),
+                                lambda: trainer.train_step(batches[0]), unit=("train step", 1))
+        del trainer
+        torch.cuda.empty_cache()
+
+
+def rlft_phase(port, seed, sup_run, toy):
+    """The port's ``run_rl_finetune_stop.sh <dir> <sup_run> yolox-s
+    RLFT_ITERS`` through ``sh`` from phase 11c's supervised run on its toy
+    set: the 8-action head grafted onto the 9-action STOP model, bf16, B =
+    16, episodes of 20 patches of 64 px, accumulation 4 in chunks of 4. It
+    must exit 0, write the run's files with finite metrics, and report the
+    launches derived from its config: per iteration the rollout's 20
+    embedder calls and N_LAYER flash launches in the recompute (replays
+    counted), then its final test's (``rl_test_launches`` at the recipe's
+    episode length, detector patches and per-call launches). Then the
+    embedder's kernels at the rollout's TRAIN_B patches against their plain
+    versions and the graphed step against the eager one. Returns the run's
+    launches and the kernel rows."""
+    phase_start = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke_rlft"
+    shutil.rmtree(root, ignore_errors=True)
+    env = {**os.environ, "DATASET_DIR": str(toy), "PYTHONUNBUFFERED": "1"}
+    start = time.perf_counter()
+    proc = subprocess.run(["sh", RLFT_SCRIPT, str(root / "out"), str(sup_run), "yolox-s",
+                           str(RLFT_ITERS)], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=900)
+    seconds = time.perf_counter() - start
+    require(proc.returncode == 0, f"rlft: {RLFT_SCRIPT} exited {proc.returncode}:\n"
+            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    require(any(ln.startswith(f"Warm-starting params from {sup_run}/") for ln in lines),
+            "rlft: no warm start from the supervised run")
+    counts = json.loads([ln for ln in lines if ln.startswith("kernel launches: ")][-1]
+                        .split(": ", 1)[1])
+    peak = [ln for ln in lines if ln.startswith("peak device memory: ")][-1]
+    run_dir = root / "out" / "r3_rlft_yolox-s"
+    files = {p.name for p in run_dir.iterdir()}
+    require({"config.json", "checkpoint.pt", "train_state.pt", "metrics.json",
+             "best_model.txt"} <= files, f"rlft: run files {sorted(files)}")
+    metrics = json.loads((run_dir / "metrics.json").read_text())
+    require(all(math.isfinite(v) for v in metrics.values())
+            and {"map", "yolo_map", "stop_used", "stop_misused", "episode_length"}
+            <= set(metrics), f"rlft: final validation metrics {metrics}")
+
+    train_config, model_config = port.tconfig.config_from_file(run_dir / "config.json")
+    require((model_config.image_processor, model_config.gpt_backbone, model_config.patch_size,
+             train_config.batch_size, model_config.compute_dtype, train_config.max_seq_len,
+             train_config.stop_enabled, train_config.gradient_accumulation,
+             train_config.steps_per_dispatch)
+            == ("yolox-s", "yolox-nano", 64, TRAIN_B, "bfloat16", STEPS, True, RLFT_WINDOW,
+                RLFT_WINDOW), f"rlft: config {model_config}, {train_config}")
+    steps = model_config.block_size
+    model = port.GPT.from_config(model_config, port.get_actions_info(train_config)).eval()
+    calls = module_kernel_calls(model, model_config.patch_size)
+    del model
+    per_call = {call: per_kernel(c) for call, c in calls.items()}
+    per_iter = {k: steps * n for k, n in per_call["embedder"].items()} | {
+        "flash_attention": N_LAYER}
+    n_worst = int(train_config.failure_select_rate * RECIPE_TEST)
+    test = rl_test_launches(RECIPE_TEST, n_worst, steps, train_config.max_det_patches, per_call)
+    expected = Counter({k: RLFT_ITERS * n for k, n in per_iter.items()}) + Counter(test)
+    expected = {k: expected.get(k, 0) for k in KERNEL_NAMES}
+    require(counts == expected, f"rlft: kernel launches {counts}, expected {expected}")
+    say(f"rlft: {RLFT_SCRIPT} <dir> <11c run> yolox-s {RLFT_ITERS} in {seconds:.1f} s"
+        f" ({RLFT_ITERS} iterations of B={TRAIN_B}, {steps} patches of"
+        f" {model_config.patch_size} px, bf16, accumulation {RLFT_WINDOW}, and the final test"
+        f" of {RECIPE_TEST} images); {peak}; kernel launches {counts} = {RLFT_ITERS} x"
+        f" {per_iter} + the final test's {test}, as derived; final validation: " + ", ".join(
+            f"{k} {metrics[k]:.4f}" for k in ("map", "yolo_map", "stop_used", "episode_length")))
+    rows = recipe_kernel_rows(port, calls, steps, seed, sizes=(("rollout", "embedder", TRAIN_B),))
+    rlft_graphed_against_eager(port, run_dir, toy, seed, per_iter)
+    say(f"rlft: the phase took {time.perf_counter() - phase_start:.1f} s")
     return Counter(counts), rows
 
 
@@ -3225,7 +3426,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path["resume_jax"] = resume_jax_phase(port, args.seed, toy, args.device_data_cache)
     torch.cuda.empty_cache()
-    by_path["recipe"], recipe_rows = recipe_phase(port, args.seed)
+    by_path["recipe"], recipe_rows, recipe_run = recipe_phase(port, args.seed)
+    torch.cuda.empty_cache()
+    by_path["rlft"], rlft_rows = rlft_phase(port, args.seed, *recipe_run)
+    recipe_rows += rlft_rows
     torch.cuda.empty_cache()
     by_path["eval"] = eval_phase(port, args.seed, model_dir, sup_run)
     torch.cuda.empty_cache()

@@ -21,6 +21,7 @@ level 0.
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -164,6 +165,25 @@ class NeedleEnv:
         self.bbox_masks = self.local_valid.any(dim=-1)
         self._deltas = torch.from_numpy(ACTION_DELTAS_ARRAY).long().to(self.device)
         self._rows = torch.arange(self.batch_size, device=self.device)
+
+    #: The tensors that hold a batch; everything else follows from the shapes.
+    DATA = ("images", "bboxes", "box_valid", "local_bboxes", "local_valid", "bbox_masks")
+
+    def static_copy(self) -> "NeedleEnv":
+        """This env with its own copy of the batch's tensors, for a CUDA
+        graph captured on it (``train/graphs.py::RolloutGraph``)."""
+        if self.pyramid is not None:
+            raise ValueError("a graphed rollout takes one glimpse level")
+        out = copy.copy(self)
+        for name in self.DATA:
+            setattr(out, name, getattr(self, name).clone())
+        return out
+
+    def copy_data_(self, other: "NeedleEnv") -> None:
+        """Copy ``other``'s batch into this env's tensors, in place: an env
+        of the same shapes and settings (the device's copies only)."""
+        for name in self.DATA:
+            getattr(self, name).copy_(getattr(other, name))
 
     # --- env API ----------------------------------------------------------
     def reset(

@@ -42,8 +42,9 @@ from .yolox import YOLOPAFPN, YOLOX_VARIANTS, NeedleYOLOX
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
-#: The CUDA graphs (``train/graphs.py::TrainGraphs``) that run the train-mode
-#: embedder and detector inside a supervised step on the card; None elsewhere.
+#: The CUDA graphs (``train/graphs.py::TrainGraphs``) that run the embedder
+#: under autograd (train-mode, or eval-mode in REINFORCE's recompute) and the
+#: train-mode detector inside a train step on the card; None elsewhere.
 TRAIN_GRAPHS: ContextVar = ContextVar("train_graphs", default=None)
 
 
@@ -86,8 +87,10 @@ class CausalSelfAttention(nn.Module):
             ck, cv = cache["k"], cache["v"]
             ck[:, cache_index] = k[:, 0]
             cv[:, cache_index] = v[:, 0]
-            att = torch.einsum("bqhd,bkhd->bhqk", q, ck) / torch.tensor(
-                math.sqrt(hd), dtype=q.dtype, device=q.device
+            # A fill on the device, not a copy from the host: a CUDA graph
+            # can capture it (train/graphs.py).
+            att = torch.einsum("bqhd,bkhd->bhqk", q, ck) / torch.full(
+                (), math.sqrt(hd), dtype=q.dtype, device=q.device
             )
             visible = torch.arange(ck.shape[1], device=x.device) <= cache_index
             att = att.masked_fill(~visible, NEG_INF)
@@ -250,9 +253,9 @@ class GPT(nn.Module):
         B, T = patches.shape[:2]
         flat = self._to_compute(patches.reshape((B * T,) + patches.shape[2:]))
         autograd = train or torch.is_grad_enabled()
-        graphs = TRAIN_GRAPHS.get() if train else None
+        graphs = TRAIN_GRAPHS.get() if autograd else None
         if self.gpt_backbone:
-            top = (graphs.embedder(flat) if graphs is not None
+            top = (graphs.embedder(flat, train) if graphs is not None
                    else self.gpt_backbone_net(flat, train, autograd)[-1])
         else:
             top = self.yolox.backbone(flat, train, autograd)[-1].detach()

@@ -1,34 +1,57 @@
-"""CUDA graphs of a supervised train step's two conv stacks on the card.
+"""CUDA graphs of a train step's conv stacks and of REINFORCE's rollout.
 
-A supervised step of the flagship recipe (B = 16 episodes of 8 patches of
-64 px, the yolox-s detector on 12 patches an episode) launches thousands of
-small kernels, and the host's pace of launching them, not the device, sets
-the step's time (``chip_smoke.py`` phase 11c profiles a step each way;
-PERF.md). Most of them are the train-mode forward and backward of
-two conv stacks, each run once a step at the same shapes: the
-``gpt_backbone`` embedder on the decision patches and the detector on the
-detector patches. Each stack is captured once, at its first step, with
+A train step of the recipes (B = 16 at 64 px, the yolox-s detector on the
+detector patches) launches thousands of small kernels, and the host's pace
+of launching them, not the device, sets the step's time (``chip_smoke.py``
+phases 11c and 11d profile a step each way; PERF.md). Most of them are in
+parts that run once a step at the same shapes:
+
+- the ``gpt_backbone`` embedder under autograd: train-mode on the
+  supervised decision patches, eval-mode in REINFORCE's teacher-forced
+  recompute of the rollout's log-probabilities;
+- the train-mode detector on the detector patches (both trainers);
+- REINFORCE's sampled rollout: ``max_ep_len`` no-grad steps of the embedder
+  (the conv kernels), the KV-cache decode and the env.
+
+Each conv stack is captured once per input shape, at its first step, with
 ``torch.cuda.make_graphed_callables`` and replayed every step after: the
 same kernels on the same tensors, one graph launch for each stack's
-forward and one for its backward.
+forward and one for its backward. A stack whose input holds more than
+MAX_GRAPHED_INPUT elements runs eagerly: its graph would keep the
+activations it saves for the backward in a pool of its own, beside what
+the rest of the step allocates (at 448 px and B = 16 the REINFORCE step's
+graphs took 52.5 GiB and ran out of the card's 80), while steps of that
+size keep the device busier anyway (PERF.md: eagerly, a REINFORCE step at
+448 px is 41.8 % busy and a supervised one 89.0 %, a supervised step of
+the 64 px recipe 17.8-21.4 %). The rollout runs eagerly at the first
+step of each shape (on the capture's stream, which warms it up) and is
+captured at the next (:class:`RolloutGraph`), on its own copy of the env's
+batch that each step copies into before the replay.
 
 What the graphs keep as they were:
 
-- the BatchNorm running statistics: the graphs update them in place at each
-  replay, once a step, as the eager stack does; the capture's warm-up runs
-  are undone (the buffers are restored after the capture);
+- the BatchNorm running statistics: the train-mode graphs update them in
+  place at each replay, once a step, as the eager stack does; the
+  capture's warm-up runs are undone (the buffers are restored after the
+  capture);
 - the gradients: the graphs' backward hands the parameters their gradients
-  through autograd, as the eager backward does. A graph's gradient buffers
-  are static, and autograd may hand one to a parameter as its ``.grad``:
-  so graphs run only where every update starts from no gradient, with no
-  accumulation window (``--gradient-accumulation 1``) and on one rank;
-- what the rest of the step launches: the photometric augmentation (drawn
-  from the trainer's generator), the decoder (the flash kernel, with its
-  launch count), the SimOTA loss and the optimizer stay eager.
+  through autograd, as the eager backward does, from static buffers that
+  the next replay overwrites. So a step that takes the graphs keeps every
+  trained parameter's gradient allocated (``Optimizer.hold_grads``):
+  autograd adds into it and an accumulation window sums as the eager one;
+- the random draws: the rollout graph draws from the trainer's generator,
+  registered with it, so each replay draws the numbers the eager rollout
+  would, in the same order, and advances the generator as far;
+- the kernels' counts: each replay adds to every wrapper's ``calls`` and
+  ``launches`` what its capture recorded; the capture itself counts none;
+- what the rest of the step launches: the augmentation and the detection
+  batch (drawn from the trainer's generator), the decoder (the flash
+  kernel, with its launch count), the losses and the optimizer stay eager.
 
 The shared detector backbone used as the embedder (no ``gpt_backbone``:
-its gradient stops at the FPN) runs eagerly. On the CPU there are no
-graphs.
+its gradient stops at the FPN) runs eagerly. The graphs run on the card and
+on one rank only (``Trainer.step_graphs``); on the CPU, over several ranks,
+in the eval rollouts, ``infer`` and the bench there are none.
 """
 
 from __future__ import annotations
@@ -41,17 +64,38 @@ from torch import nn
 
 from ..models import gpt
 from ..models.yolox import make_grids_and_strides
+from ..ops import attention, conv
+from .rollout import rollout
+
+#: The largest input (elements) of a conv stack that is captured: the
+#: recipes' 64 px stacks take at most 3.9 M, the flagship's 448 px ones at
+#: least 38.5 M.
+MAX_GRAPHED_INPUT = 1 << 24
+
+#: The kernel wrappers whose ``calls`` and ``launches`` a graph's replay adds to.
+COUNTED = (conv.dwblock_bn_silu, conv.conv3x3_bn_silu, conv.conv3x3, attention.flash_attention)
+
+
+def _counts() -> list:
+    return [(fn.calls, fn.launches) for fn in COUNTED]
+
+
+def _add_counts(counts: list) -> None:
+    for fn, (calls, launches) in zip(COUNTED, counts):
+        fn.calls += calls
+        fn.launches += launches
 
 
 class _EmbedderTop(nn.Module):
-    """The train-mode ``gpt_backbone`` embedder: its top FPN level."""
+    """The ``gpt_backbone`` embedder under autograd: its top FPN level, in
+    train mode (batch statistics) or eval mode (running statistics)."""
 
-    def __init__(self, net: nn.Module):
+    def __init__(self, net: nn.Module, train: bool):
         super().__init__()
-        self.net = net
+        self.net, self.train_mode = net, train
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net(x, True, True)[-1]
+        return self.net(x, self.train_mode, True)[-1]
 
 
 class _DetectorHead(nn.Module):
@@ -79,38 +123,94 @@ def graph_stack(module: nn.Module, sample: torch.Tensor):
     return graphed
 
 
+class RolloutGraph:
+    """A sampled ``rollout`` of ``model`` (with the actions) captured as one
+    CUDA graph on a copy of ``env``'s batch, drawing from ``generator``.
+    :meth:`replay` runs it on another env of the same shapes and returns
+    the rollout's outputs, static tensors that the next replay overwrites."""
+
+    def __init__(self, model, env, generator: torch.Generator, stream: torch.cuda.Stream):
+        self.env = env.static_copy()
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        before = _counts()
+        with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+            self.out = rollout(model, self.env, sample=True, generator=generator,
+                               collect=("actions",))
+        after = _counts()
+        #: What one replay launches, per wrapper: (calls, launches).
+        self.counts = [(c1 - c0, l1 - l0) for (c0, l0), (c1, l1) in zip(before, after)]
+        _add_counts([(-c, -n) for c, n in self.counts])
+
+    def replay(self, env) -> Dict[str, object]:
+        self.env.copy_data_(env)
+        self.graph.replay()
+        _add_counts(self.counts)
+        return self.out
+
+
 class TrainGraphs:
-    """The graphed stacks of one model, captured lazily at each new input
-    shape (a supervised step has one of each)."""
+    """The graphed parts of one model's train steps, each captured lazily
+    at each new input shape (a steady run makes one of each it uses)."""
 
     def __init__(self, model):
         self.model = model
         self.graphed: Dict[tuple, nn.Module] = {}
-        #: Captures made, by stack (a steady run makes one of each).
-        self.captures = {"embedder": 0, "detector": 0}
+        self.rollouts: Dict[tuple, RolloutGraph] = {}
+        self._warm = set()  # rollout keys run once eagerly, to capture next
+        self._stream = None
+        #: Captures made, by part.
+        self.captures = {"embedder": 0, "detector": 0, "rollout": 0}
 
-    def _run(self, name: str, module, x: torch.Tensor):
-        key = (name, tuple(x.shape), x.dtype)
+    def _run(self, key: tuple, make, x: torch.Tensor):
+        """``make()``'s module on ``x``: its graph, or the module itself
+        above MAX_GRAPHED_INPUT."""
+        if x.numel() > MAX_GRAPHED_INPUT:
+            return make()(x)
+        key = key + (tuple(x.shape), x.dtype)
         if key not in self.graphed:
-            self.graphed[key] = graph_stack(module(), x)
-            self.captures[name] += 1
+            self.graphed[key] = graph_stack(make(), x)
+            self.captures[key[0]] += 1
         return self.graphed[key](x)
 
-    def embedder(self, x: torch.Tensor) -> torch.Tensor:
-        """The ``gpt_backbone`` embedder's top level on NCHW ``x``."""
-        return self._run("embedder", lambda: _EmbedderTop(self.model.gpt_backbone_net), x)
+    def embedder(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """The ``gpt_backbone`` embedder's top level on NCHW ``x`` under
+        autograd, in train or eval mode."""
+        net = self.model.gpt_backbone_net
+        return self._run(("embedder", train), lambda: _EmbedderTop(net, train), x)
 
     def detector(self, x: torch.Tensor) -> dict:
         """The detector head's outputs on NCHW ``x`` (``YOLOXHead``'s dict)."""
-        outs = self._run("detector", lambda: _DetectorHead(self.model.yolox), x)
+        outs = self._run(("detector",), lambda: _DetectorHead(self.model.yolox), x)
         head = dict(zip(_DetectorHead.KEYS, outs))
         head["grids"], head["strides"] = make_grids_and_strides(x.shape[2], x.device)
         return head
 
+    def rollout(self, env, generator: torch.Generator):
+        """``rollout(model, env, sample=True, generator, collect=("actions",))``:
+        eager at the first call of its shapes, then a :class:`RolloutGraph`."""
+        key = (tuple(env.images.shape), env.images.dtype, tuple(env.bboxes.shape))
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(env.device)
+        graph = self.rollouts.get(key)
+        if graph is None and key not in self._warm:
+            self._warm.add(key)
+            current = torch.cuda.current_stream(env.device)
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                out = rollout(self.model, env, sample=True, generator=generator,
+                              collect=("actions",))
+            current.wait_stream(self._stream)
+            return out
+        if graph is None:
+            graph = self.rollouts[key] = RolloutGraph(self.model, env, generator, self._stream)
+            self.captures["rollout"] += 1
+        return graph.replay(env)
+
 
 @contextmanager
 def active(graphs: Optional[TrainGraphs]):
-    """Route the model's train-mode stacks through ``graphs`` inside."""
+    """Route the model's stacks under autograd through ``graphs`` inside."""
     token = gpt.TRAIN_GRAPHS.set(graphs)
     try:
         yield

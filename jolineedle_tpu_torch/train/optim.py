@@ -82,6 +82,15 @@ class Optimizer:
     when it applied an update. Frozen parameters keep their values and their
     gradients are dropped.
 
+    A step that replays CUDA graphs (``train/graphs.py``) first calls
+    :meth:`hold_grads`: from then on every trained parameter keeps an
+    allocated gradient, which each backward adds into and each update sets
+    to zero. A graph's backward hands over its gradients in static buffers
+    that its next replay overwrites; autograd adopts such a buffer as
+    ``.grad`` when the parameter has none, and adds it into ``.grad``
+    otherwise. So the window's sum is the eager one, bit for bit (``0 + g``
+    is ``g``).
+
     Over several ranks, a train step sums each iteration's fresh gradients
     over the ranks before they join the ones accumulated here
     (``parallel.mesh.data_parallel``): the accumulated gradient, its
@@ -122,6 +131,8 @@ class Optimizer:
         self.schedule = (lr_schedule, lr_warmup_iters, lr_decay_iters)
         self.mini_step = 0  # backward passes accumulated since the last update
         self.updates = 0  # updates applied (optax's inner count)
+        #: Set by :meth:`hold_grads`: updates zero the gradients in place.
+        self.grads_held = False
 
     def trained_params(self):
         """The parameters of the trained groups, in the groups' order."""
@@ -148,8 +159,16 @@ class Optimizer:
         self.updates += 1
         return True
 
+    def hold_grads(self) -> None:
+        """Give every trained parameter a zero gradient where it has none,
+        and keep the gradients allocated across updates from now on."""
+        self.grads_held = True
+        for p in self.trained_params():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
     def zero_grad(self) -> None:
-        self.adamw.zero_grad(set_to_none=True)
+        self.adamw.zero_grad(set_to_none=not self.grads_held)
         for p in self.frozen:
             p.grad = None
 

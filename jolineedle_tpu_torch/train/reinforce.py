@@ -22,6 +22,12 @@ advantages normalised by the previous accumulation window's return
 mean and Bessel-corrected std; then, with detection on, the SimOTA loss of
 the train-mode detector on env-sampled, photometrically augmented patches;
 backward; the optimizer (accumulation, clip 1.0, two AdamW groups).
+
+On the card and on one rank the step replays CUDA graphs
+(``train/graphs.py``): the sampled rollout (from its second step of a
+shape), the recompute's ``gpt_backbone`` embedder and the train-mode
+detector, with the step's draws, kernels and gradients as the eager step
+has them (``chip_smoke.py`` phase 11d holds the two).
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from ..ops.simota import yolox_losses
 from ..parallel.mesh import data_parallel, global_count, reduce_metrics
 from ..utils.geometry import BBox, Position, merge_boxes_batched, parse_bbox_predictions
 from ..utils.metrics import compute_detection_metrics, patch_bboxes2full_image
+from . import graphs as train_graphs
 from .rollout import compute_rollout_metrics, rollout
 from .trainer import Trainer
 
@@ -241,13 +248,18 @@ class ReinforceTrainer(Trainer):
         self._mark("start")
         images = self._batch_images(batch)
         self._mark("upload")
-        with data_parallel(self.world, self.optimizer.trained_params()):
+        graphs = self.step_graphs()
+        with data_parallel(self.world, self.optimizer.trained_params()), \
+                train_graphs.active(graphs):
             env = NeedleEnv(images, batch["bboxes"], cfg.patch_size, self.max_ep_len, 1,
                             self.stop_enabled,
                             stop_bonus_scale=getattr(cfg, "stop_bonus_scale", 1.0),
                             device=self.device)
-            ro = rollout(self.model, env, sample=True, generator=self.generator,
-                         collect=("actions",))
+            if graphs is not None:
+                ro = graphs.rollout(env, self.generator)
+            else:
+                ro = rollout(self.model, env, sample=True, generator=self.generator,
+                             collect=("actions",))
             self._mark("rollout")
             loss, metrics = reinforce_loss(self.model, env, ro, self.last_return_mean,
                                            self.last_return_std, self.entropy_weight,

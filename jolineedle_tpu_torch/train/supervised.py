@@ -18,10 +18,9 @@ The counterpart of ``jolineedle_tpu/train/supervised.py``:
   then the two-group AdamW with accumulation (no clip). The BatchNorm
   running statistics are updated in place by each forward in turn, so the
   detector's continue from what the decision forward left, as the JAX step
-  chains its mutable ``batch_stats``. On the card, with no accumulation
-  window and on one rank, the train-mode ``gpt_backbone`` embedder and
-  detector run as CUDA graphs captured at the first step
-  (``train/graphs.py``, :meth:`SupervisedTrainer.step_graphs`);
+  chains its mutable ``batch_stats``. On the card and on one rank, the
+  train-mode ``gpt_backbone`` embedder and detector run as CUDA graphs
+  captured at the first step (``train/graphs.py``, ``Trainer.step_graphs``);
 - the autoregressive eval runs the no-grad KV-cache rollout
   (``train/rollout.py``, the fused conv kernels) from each episode's start
   position and class, then replays it on the host oracle for the optimal
@@ -164,8 +163,6 @@ class SupervisedTrainer(Trainer):
             weight[Action.STOP.value] = config.stop_weight
         self.class_weight_np = weight  # host copy for the eval metrics
         self.class_weight = torch.from_numpy(weight).to(self.device)
-        #: The train steps' CUDA graphs, made at the first step that can use them.
-        self.graphs = None
 
     # --- the train step ---------------------------------------------------------
     def _pool_patches(self, dev, positions, canvases):
@@ -226,15 +223,6 @@ class SupervisedTrainer(Trainer):
         self.step += 1
         self._mark("optimizer")
         return metrics
-
-    def step_graphs(self) -> Optional[train_graphs.TrainGraphs]:
-        """The CUDA graphs of this trainer's train steps (``train/graphs.py``):
-        on the card, on one rank, with no accumulation window; else None."""
-        if self.device.type != "cuda" or self.world.grouped or self.optimizer.every_k > 1:
-            return None
-        if self.graphs is None:
-            self.graphs = train_graphs.TrainGraphs(self.model)
-        return self.graphs
 
     # --- train loop (reference: src/supervised.py:812-911) ----------------------
     def train_iterations(self):

@@ -31,6 +31,7 @@ from __future__ import annotations
 import json
 from collections import defaultdict
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ from ..env.actions import get_actions_info
 from ..ops.simota import yolox_losses
 from ..parallel import mesh
 from ..utils.plotting import MISSING, matplotlib_available, plot_model_prediction
+from . import graphs as train_graphs
 from .batching import Prefetcher
 from .optim import Optimizer
 from .rollout import eval_rollout, to_numpy
@@ -123,6 +125,8 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         #: Set to a list to record (phase, CUDA event) marks in train_step.
         self.phase_events = None
+        #: The train steps' CUDA graphs, made at the first step that can use them.
+        self.graphs = None
         #: The training set on the device (``data/device_pool.py``), or None
         #: while the train batches stream their pixels; ``run`` decides.
         self.pool = None
@@ -306,6 +310,19 @@ class Trainer:
             self.test()
         self.world.barrier()
 
+    def step_graphs(self) -> Optional[train_graphs.TrainGraphs]:
+        """The CUDA graphs of this trainer's train steps (``train/graphs.py``)
+        on the card and on one rank, else None. A step that takes them keeps
+        every trained parameter's gradient allocated (``Optimizer.
+        hold_grads``), so that an accumulation window sums as the eager
+        route does."""
+        if self.device.type != "cuda" or self.world.grouped:
+            return None
+        if self.graphs is None:
+            self.graphs = train_graphs.TrainGraphs(self.model)
+        self.optimizer.hold_grads()
+        return self.graphs
+
     def _mark(self, phase: str) -> None:
         """Record a CUDA event after ``phase`` when ``phase_events`` is a list."""
         if self.phase_events is not None:
@@ -433,7 +450,10 @@ class Trainer:
 
     def prepare_validation(self):
         """Reload the best checkpoint and switch to the full test set
-        (reference: src/trainer.py:138-165)."""
+        (reference: src/trainer.py:138-165). The eval rollouts' seeds count
+        from 0 again, as in a fresh trainer: the final validation depends on
+        the checkpoint alone, and ``scripts/eval_checkpoint.py`` repeats it
+        (the JAX trainer keeps counting, so its random starts differ)."""
         best = self.checkpoint_dir / ckpt.CKPT_BEST
         if not best.exists() and ckpt.holds_record(self.checkpoint_dir, self.jax_origin):
             # a JAX run resumed in its own directory, untested since: its best
@@ -444,6 +464,7 @@ class Trainer:
         else:
             print("Could not reload best checkpoint for final test, using last checkpoint")
         self.test_env_ids = list(range(len(self.test_dataset)))
+        self._eval_dispatch_count = 0
 
     # --- batched eval (shared by the trainers' eval paths) ---------------------
     def _batched_eval_rollouts(self, rows, sample_actions: bool):

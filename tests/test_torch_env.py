@@ -82,12 +82,27 @@ def _check(jout, tout, step, patch_tol=None):
     [(True, True, 1.0), (True, True, 0.25), (False, True, 1.0), (False, False, 1.0)],
 )
 @pytest.mark.parametrize("masked", [False, True])
-def test_env_matches_jax(stop_enabled, terminate_on_all_found, stop_bonus_scale, masked):
+@pytest.mark.parametrize("copied", [False, True], ids=["built", "copied"])
+def test_env_matches_jax(stop_enabled, terminate_on_all_found, stop_bonus_scale, masked, copied):
+    """``copied``: the port's env is the ``static_copy`` of an env of
+    another batch (other pixels, the boxes in another order) that this
+    batch's env was copied into (``copy_data_``), as a graphed rollout runs
+    (``train/graphs.py::RolloutGraph``)."""
     images, boxes = _scene(0)
     kw = dict(stop_enabled=stop_enabled, terminate_on_all_found=terminate_on_all_found,
               stop_bonus_scale=stop_bonus_scale)
     jenv = JaxEnv(jnp.asarray(images), jnp.asarray(boxes), P, T, 1, **kw)
     tenv = TorchEnv(images, boxes, P, T, 1, device="cpu", **kw)
+    if copied:
+        other = _scene(1)[0], boxes[::-1].copy()
+        static = TorchEnv(*other, P, T, 1, device="cpu", **kw).static_copy()
+        static.copy_data_(tenv)
+        assert all(getattr(static, n).data_ptr() != getattr(tenv, n).data_ptr()
+                   for n in TorchEnv.DATA)
+        for got, want in zip(*(env.get_detection_batch(torch.Generator().manual_seed(0), 4)
+                               for env in (static, tenv))):
+            assert torch.equal(got, want)
+        tenv = static
     np.testing.assert_array_equal(tenv.bbox_masks.numpy(), np.asarray(jenv.bbox_masks))
 
     start = np.array([[0, 0], [1, 2], [0, 2]], np.int32)

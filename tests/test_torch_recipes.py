@@ -375,15 +375,29 @@ def test_rl_scratch_recipe_runs_end_to_end_on_cpu(toy, tmp_path):
     _final_metrics(tmp_path / "out" / "r3_scratch_stop", ("map", "prop_patches_found"))
 
 
-def test_time_recipe_reads_the_pace_between_tests():
+# A recipe prints its loss every 256 iterations (at the end of the chunk that
+# holds it). The supervised flagship tests every 2,500 iterations, at 0.08 s
+# an iteration: the test at 2,500 falls between 2,304 and 2,560, that at
+# 5,000 between 4,864 and 5,120, 7.5 and 3.25 s late from there on. The
+# REINFORCE fine-tune trains in chunks of 4 and tests every 1,000 (the 9
+# tests before its 10,000th iteration, each 1.5 s and 0.1 s more than the last).
+PACE_RUNS = {
+    "supervised": (2500, 20, 0.08, [7.5, 3.25]),
+    "reinforce": (1000, 39, 0.075, [1.5 + 0.1 * k for k in range(9)]),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(PACE_RUNS))
+def test_time_recipe_reads_the_pace_between_tests(mode):
     """``time_recipe.pace``: the median seconds an iteration over the spans
-    between printed iterations that hold no test, and each test's excess;
-    a recipe prints every 256 iterations and tests every 2,500."""
-    stamps = [(256 * k, 10.0 + 0.08 * 256 * k) for k in range(1, 21)]
-    # The test at 2,500 falls between 2,304 and 2,560, that at 5,000
-    # between 4,864 and 5,120: 7.5 and 3.25 s late from there on.
-    stamps = [(i, t + 7.5 * (i > 2500) + 3.25 * (i > 5000)) for i, t in stamps]
-    out = time_recipe.pace(stamps, 2500)
-    assert out["s_per_iter"] == pytest.approx(0.08)
-    assert out["s_per_iter_spans"] == 17
-    assert out["test_s"] == pytest.approx([7.5, 3.25])
+    between printed iterations that hold no test, and each test's excess."""
+    test_every, n_prints, s_iter, tests = PACE_RUNS[mode]
+    stamps = []
+    for k in range(1, n_prints + 1):
+        it = 256 * k
+        late = sum(s for j, s in enumerate(tests, start=1) if it > j * test_every)
+        stamps.append((it, 10.0 + s_iter * it + late))
+    out = time_recipe.pace(stamps, test_every)
+    assert out["s_per_iter"] == pytest.approx(s_iter)
+    assert out["s_per_iter_spans"] == n_prints - 1 - len(tests)
+    assert out["test_s"] == pytest.approx(tests)

@@ -354,11 +354,33 @@ class _Tiny(torch.nn.Module):
         self.h.w = torch.nn.Parameter(torch.from_numpy(values["h"].copy()))
 
 
+def _tiny_window(model, opt, grads, held):
+    """Backward passes of ``grads`` into the tiny model, each followed by
+    ``opt.step()``; with ``held``, ``opt.hold_grads()`` before each, as a
+    graphed train step does. Returns the steps' results and each window's
+    summed gradients, read just before its update."""
+    params = (("backbone", model.yolox.backbone.w), ("head", model.yolox.head.w),
+              ("h", model.h.w))
+    applied, sums = [], []
+    for g in grads:
+        if held:
+            opt.hold_grads()
+        sum((p * torch.from_numpy(g[name])).sum() for name, p in params).backward()
+        if opt.mini_step + 1 == opt.every_k:
+            sums.append({name: p.grad.clone() for name, p in params if p.grad is not None})
+        applied.append(opt.step())
+    return applied, sums
+
+
+@pytest.mark.parametrize("held", [False, True], ids=["set_to_none", "held"])
 @pytest.mark.parametrize("schedule", ["constant", "cosine"])
-def test_optimizer_matches_optax(schedule):
+def test_optimizer_matches_optax(schedule, held):
     """Two AdamW groups at their own rates, one frozen partition, k = 2
     micro-batches averaged before the clip at 1.0, weight decay: four
-    backward passes, two updates."""
+    backward passes, two updates. ``held``: the gradients that a graphed
+    train step keeps allocated (``Optimizer.hold_grads``) sum each window
+    bit for bit as the eager route's, which sets them to None after each
+    update, and give the same weights."""
     rng = np.random.default_rng(3)
     values = {k: rng.normal(size=(3, 4)).astype(np.float32) for k in ("backbone", "head", "h")}
     grads = [{k: (rng.normal(size=(3, 4)) * 2).astype(np.float32) for k in values}
@@ -381,14 +403,20 @@ def test_optimizer_matches_optax(schedule):
 
     model = _Tiny(values)
     opt = Optimizer(model, **kw)
-    applied = []
-    for g in grads:  # as backward passes do, add into .grad
-        for name, p in (("backbone", model.yolox.backbone.w), ("head", model.yolox.head.w),
-                        ("h", model.h.w)):
-            g_t = torch.from_numpy(g[name])
-            p.grad = g_t.clone() if p.grad is None else p.grad + g_t
-        applied.append(opt.step())
+    applied, sums = _tiny_window(model, opt, grads, held)
     assert applied == [False, True, False, True] and opt.updates == 2
+    assert opt.grads_held == held
+    assert all((p.grad is not None) == held for p in opt.trained_params())
+    if held:
+        eager = _Tiny(values)
+        eager_opt = Optimizer(eager, **kw)
+        _, eager_sums = _tiny_window(eager, eager_opt, grads, held=False)
+        assert [sorted(w) for w in sums] == [sorted(w) for w in eager_sums]
+        for got, want in zip(sums, eager_sums):
+            for name in want:
+                assert torch.equal(got[name], want[name]), name
+        for got, want in zip(model.parameters(), eager.parameters()):
+            assert torch.equal(got, want)
     np.testing.assert_array_equal(model.yolox.backbone.w.detach().numpy(), values["backbone"])
     for got, want, init in ((model.yolox.head.w, params["yolox"]["head"]["w"], values["head"]),
                             (model.h.w, params["h"]["w"], values["h"])):
@@ -503,6 +531,7 @@ def test_train_cli_trains_checkpoints_and_resumes_on_cpu(tmp_path):
     trainer = main(cli(flags), device="cpu")
     run_dir = tmp_path / "out" / "cli"
     assert trainer.step == 2 and trainer.optimizer.updates == 1
+    assert trainer.graphs is None and not trainer.optimizer.grads_held  # eager on the CPU
     assert trainer.pool is not None  # --device-data-cache auto: the toy set fits
     assert {"config.json", "checkpoint.pt", "checkpoint_best.pt", "train_state.pt",
             "metrics.json", "best_model.txt", "visdom.pkl"} <= {p.name for p in run_dir.iterdir()}
@@ -528,3 +557,33 @@ def test_train_cli_trains_checkpoints_and_resumes_on_cpu(tmp_path):
                                 "--device-data-cache", "off"]), device="cpu")
     assert resumed.step == 3 and resumed.pool is None
     assert (resumed.optimizer.updates, resumed.optimizer.mini_step) == (1, 1)
+
+
+@pytest.mark.parametrize("device,grouped", [("cpu", False), ("cpu", True), ("cuda", True),
+                                            ("cuda", False)])
+def test_train_step_graphs_only_on_the_card_on_one_rank(device, grouped):
+    """``Trainer.step_graphs``, which both trainers' ``train_step`` asks: no
+    graphs on the CPU or over several ranks (the eager route, gradients set
+    to None after each update); on the card on one rank the model's
+    ``TrainGraphs``, made once, and the optimizer then holds its gradients.
+    Nothing is captured here: the graphs capture at their first use."""
+    from types import SimpleNamespace
+
+    from jolineedle_tpu_torch.train.graphs import TrainGraphs
+    from jolineedle_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(0)
+    model = _Tiny({k: rng.normal(size=(3, 4)).astype(np.float32)
+                   for k in ("backbone", "head", "h")})
+    opt = Optimizer(model, learning_rate=1e-3, yolo_lr=1e-3, gradient_accumulation=4)
+    trainer = SimpleNamespace(device=torch.device(device), world=SimpleNamespace(grouped=grouped),
+                              graphs=None, model=model, optimizer=opt)
+    graphs = Trainer.step_graphs(trainer)
+    if device == "cpu" or grouped:
+        assert graphs is None and trainer.graphs is None and not opt.grads_held
+        assert all(p.grad is None for p in model.parameters())
+    else:
+        assert isinstance(graphs, TrainGraphs) and graphs.model is model
+        assert Trainer.step_graphs(trainer) is graphs and opt.grads_held
+        assert all(torch.equal(p.grad, torch.zeros_like(p)) for p in opt.trained_params())
+        assert graphs.captures == {"embedder": 0, "detector": 0, "rollout": 0}
