@@ -2,8 +2,13 @@
 """Drive the PyTorch/CUDA port, ``jolineedle_tpu_torch``, on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--device-data-cache auto|on|off]
+                          [--group kernels|serve|train|recipe|ddp|bench]
 
-Phases, each of which raises (and the script exits non-zero) on a failure:
+Phases, each of which raises (and the script exits non-zero) on a failure.
+With no ``--group`` every phase runs and the script ends with the
+``kernels`` line; ``--group`` runs one group of them (``GROUPS``, with a
+phase of another group that one of its phases reads first: ``NEEDS``) and
+ends with its launches by path. Each phase prints its seconds. The phases:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of ``jolineedle_tpu_torch/csrc`` with ``nvcc``,
@@ -141,9 +146,9 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    same batches, in float32 and bfloat16 (losses within rtol 1e-6, weights
    within 1e-6 after 2 steps), with each one's wall ms in turns;
 11d. rlft: the port's ``run_rl_finetune_stop.sh <dir> <11c's run> yolox-s
-   8`` through ``sh`` on 11c's toy set: the supervised 8-action head
+   4`` through ``sh`` on 11c's toy set: the supervised 8-action head
    grafted onto the 9-action STOP model, bf16, B = 16, episodes of 20
-   patches of 64 px, accumulation 4 in chunks of 4, two windows. It exits 0,
+   patches of 64 px, accumulation 4 in chunks of 4, one window. It exits 0,
    writes its run files with finite final-validation metrics, and its
    launches are what its config implies: per iteration the sampled
    rollout's 20 embedder calls (240 ``dwblock_bn_silu``, 20
@@ -157,7 +162,10 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    update: float32 losses equal, and after the update every weight within
    2 learning rates and all but 1 % within 1e-7; bf16 losses within rtol
    1e-6; each run's launches as derived; each one's wall ms in turns and,
-   in bf16, its busy share;
+   in bf16, its busy share. Then the float32 comparison again under
+   ``torch.use_deterministic_algorithms`` and cuDNN's deterministic
+   algorithms (the graphs captured under them; the flags restored after,
+   also on a failure): losses equal and every weight within 1e-7;
 12. eval and report: a toy test set of 10 images of 3 x 3 patches (1344
    px), so that ``--failure-select-rate`` 0.1 picks one worst image.
    ``--measure-flops`` through the train CLI on the card and on the CPU
@@ -225,7 +233,7 @@ Phases, each of which raises (and the script exits non-zero) on a failure:
    pyramid build timed (median of 20 event pairs);
 17. bench: ``python -m jolineedle_tpu_torch.bench``'s ``run`` in-process
    on the card at its full config (B = 128, grid 6, 448 px, 20 steps, bf16,
-   and the yolox-s secondary) with ``BENCH_ITERS=5``, ``BENCH_REPEATS=3``,
+   and the yolox-s secondary) with ``BENCH_ITERS=5``, ``BENCH_REPEATS=2``,
    ``BENCH_SECONDARY_ITERS=2``, ``BENCH_BASELINE_MIN_S=0`` and its first
    nano pass profiled: its JSON line printed, every key of bench.py's line
    present, 0.974 GFLOP an env step, ``mfu_pct`` in (0, 100], and each timed
@@ -277,6 +285,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from collections import Counter, defaultdict
 from pathlib import Path
 from types import SimpleNamespace
@@ -362,22 +371,31 @@ ROUTE_B = 4
 # then the graphed train step against the eager one, GRAPH_STEPS steps each.
 RECIPE_SCRIPT = "jolineedle_tpu_torch/scripts/run_sup_flagship.sh"
 RECIPE_ITERS, RECIPE_TRAIN, RECIPE_TEST, GRAPH_STEPS = 3, 16, 10, 2
+# The graphed and the eager step's wall ms: GRAPH_TIMED_PASSES passes over
+# the GRAPH_STEPS batches a turn (5 until the script had to fit 600 s).
+GRAPH_TIMED_PASSES = 2
 # A graphed step against the eager one from the same state: losses and
 # weights (the same kernels on the same tensors; cuDNN's backward sums in
 # its own order).
 GRAPH_RTOL, GRAPH_ATOL = 1e-6, 1e-6
 # The fine-tune phase: the port's run_rl_finetune_stop.sh (yolox-s) for
-# RLFT_ITERS iterations (two accumulation windows) from the recipe phase's
-# run on its toy set; then the graphed step against the eager one over one
-# window of RLFT_WINDOW iterations: float32 losses equal; after the
-# window's update (AdamW's first: it moves each weight by about lr along
-# its gradient's sign, and the graphs' backward sums some gradients in
-# another order, so a weight whose gradient is ~0 can step the other way)
-# every weight within RLFT_STEP_TOL learning rates and all but
-# RLFT_FLIP_SHARE of them within RLFT_ATOL; bf16 losses within GRAPH_RTOL.
+# RLFT_ITERS iterations (one accumulation window; two until the script had
+# to fit 600 s: its launches are derived per iteration, and the window's
+# update is held below) from the recipe phase's run on its toy set; then
+# the graphed step against the eager one over one window of RLFT_WINDOW
+# iterations: float32 losses equal; after the window's update (AdamW's
+# first: it moves each weight by about lr along its gradient's sign, and
+# the graphs' backward sums some gradients in another order, so a weight
+# whose gradient is ~0 can step the other way) every weight within
+# RLFT_STEP_TOL learning rates and all but RLFT_FLIP_SHARE of them within
+# RLFT_ATOL; bf16 losses within GRAPH_RTOL.
 RLFT_SCRIPT = "jolineedle_tpu_torch/scripts/run_rl_finetune_stop.sh"
-RLFT_ITERS, RLFT_WINDOW = 8, 4
+RLFT_ITERS, RLFT_WINDOW = 4, 4
 RLFT_STEP_TOL, RLFT_ATOL, RLFT_FLIP_SHARE = 2.0, 1e-7, 1e-2
+# The same float32 comparison under torch.use_deterministic_algorithms and
+# cuDNN's deterministic algorithms (the graphs captured under them): every
+# weight within RLFT_DET_ATOL of the eager step's after the update.
+RLFT_DET_ATOL = 1e-7
 # The plain 3x3 conv: the smoke script's default and the nano stem.
 PLAIN_CONV_SHAPES = [(8, 56, 56, 16, 32), (N_PATCHES, PATCH // 2, PATCH // 2, 12, 16)]
 # The dense 3x3 convs of a wider variant, held and timed beside the path.
@@ -2262,11 +2280,11 @@ def graphed_against_eager(port, run_dir, toy, seed):
                 trainer.train_step(batches[0])
                 torch.cuda.synchronize()
                 start = time.perf_counter()
-                for b in batches * 5:
+                for b in batches * GRAPH_TIMED_PASSES:
                     trainer.train_step(b)
                 torch.cuda.synchronize()
             walls["graphed" if graphed else "eager"].append(
-                (time.perf_counter() - start) * 1e3 / (5 * len(batches)))
+                (time.perf_counter() - start) * 1e3 / (GRAPH_TIMED_PASSES * len(batches)))
         say(f"recipe train step B={TRAIN_B} {dtype}: graphed losses {graphed_losses} = eager"
             f" {eager_losses} (rtol {GRAPH_RTOL}), weights {err:.3g} apart; wall ms a step, in"
             f" turns (eager, graphed, graphed, eager): eager {walls['eager']}, graphed"
@@ -2359,90 +2377,136 @@ def rlft_graphed_against_eager(port, run_dir, toy, seed, per_iter):
     RLFT_FLIP_SHARE) and in bfloat16 as the recipe runs (losses within
     GRAPH_RTOL), each run launching ``per_iter`` an iteration; then the
     wall ms of a step each way, in turns, and in bfloat16 each one's busy
-    share."""
+    share. Then the float32 pass again under :func:`deterministic`: every
+    weight within RLFT_DET_ATOL."""
+    flags_train, flags_model = port.tconfig.config_from_file(run_dir / "config.json")
+    for dtype, exact in (("float32", False), ("bfloat16", False), ("float32", True)):
+        with deterministic() if exact else contextlib.nullcontext() as warned:
+            rlft_window(port, flags_train, flags_model, toy, seed, per_iter, dtype, warned)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Inside: ``torch.use_deterministic_algorithms(True)`` (an op with no
+    deterministic version warns; the warnings are yielded) and cuDNN's
+    deterministic algorithms with no benchmarking. The global flags are
+    restored at the exit, also on an exception."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        try:
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+            yield warned
+        finally:
+            torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
+
+
+def rlft_window(port, flags_train, flags_model, toy, seed, per_iter, dtype, warned):
+    """One pass of :func:`rlft_graphed_against_eager` in ``dtype``; under
+    :func:`deterministic` (``warned`` is then its list of warnings) the
+    float32 weights within RLFT_DET_ATOL and no timing."""
     from jolineedle_tpu_torch.parallel import mesh
 
-    flags_train, flags_model = port.tconfig.config_from_file(run_dir / "config.json")
-    for dtype in ("float32", "bfloat16"):
-        train_config, model_config = copy.deepcopy(flags_train), copy.deepcopy(flags_model)
-        model_config.compute_dtype = dtype
-        train_config.work_dir = str(toy.parent / "rlft_graphs")
-        trainer = port.build_trainer(mesh.single(torch.device(DEVICE)), train_config,
-                                     model_config, toy, log=False)
-        trainer.pool = trainer.train_pool()
-        require(trainer.pool is not None and trainer.optimizer.every_k == RLFT_WINDOW,
-                f"rlft ({dtype}): the pool and a window of {RLFT_WINDOW}")
-        rng = np.random.default_rng(seed)
-        n_train = len(trainer.train_dataset)
-        batches = [trainer.build_batch(rng.integers(0, n_train, TRAIN_B).tolist(), seed + i)
-                   for i in range(RLFT_WINDOW)]
-        start_state = copy.deepcopy(trainer.model.state_dict())
-        start_opt = copy.deepcopy(trainer.optimizer.state_dict())
-        start_gen = trainer.generator.get_state()
-        eager = lambda graphed: (contextlib.nullcontext() if graphed
-                                 else mock.patch.object(trainer, "step_graphs", lambda: None))
+    exact = warned is not None
+    train_config, model_config = copy.deepcopy(flags_train), copy.deepcopy(flags_model)
+    model_config.compute_dtype = dtype
+    train_config.work_dir = str(toy.parent / "rlft_graphs")
+    trainer = port.build_trainer(mesh.single(torch.device(DEVICE)), train_config,
+                                 model_config, toy, log=False)
+    trainer.pool = trainer.train_pool()
+    require(trainer.pool is not None and trainer.optimizer.every_k == RLFT_WINDOW,
+            f"rlft ({dtype}): the pool and a window of {RLFT_WINDOW}")
+    rng = np.random.default_rng(seed)
+    n_train = len(trainer.train_dataset)
+    batches = [trainer.build_batch(rng.integers(0, n_train, TRAIN_B).tolist(), seed + i)
+               for i in range(RLFT_WINDOW)]
+    start_state = copy.deepcopy(trainer.model.state_dict())
+    start_opt = copy.deepcopy(trainer.optimizer.state_dict())
+    start_gen = trainer.generator.get_state()
+    eager = lambda graphed: (contextlib.nullcontext() if graphed
+                             else mock.patch.object(trainer, "step_graphs", lambda: None))
 
-        def run(graphed):
-            kind = "graphed" if graphed else "eager"
-            trainer.model.load_state_dict(start_state)
-            trainer.optimizer.load_state_dict(copy.deepcopy(start_opt))
-            trainer.generator.set_state(start_gen)
-            reset_launches(port)
-            with eager(graphed):
-                losses = [float(trainer.train_step(b)["loss"]) for b in batches]
-            torch.cuda.synchronize()
-            check_launches(port, f"rlft: {RLFT_WINDOW} {kind} steps ({dtype})",
-                           {k: RLFT_WINDOW * n for k, n in per_iter.items()})
-            require(trainer.optimizer.updates == start_opt["updates"] + 1
-                    and trainer.optimizer.mini_step == 0, f"rlft: {kind} window's update")
-            return losses, {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+    def run(graphed):
+        kind = "graphed" if graphed else "eager"
+        trainer.model.load_state_dict(start_state)
+        trainer.optimizer.load_state_dict(copy.deepcopy(start_opt))
+        trainer.generator.set_state(start_gen)
+        reset_launches(port)
+        with eager(graphed):
+            losses = [float(trainer.train_step(b)["loss"]) for b in batches]
+        torch.cuda.synchronize()
+        check_launches(port, f"rlft: {RLFT_WINDOW} {kind} steps ({dtype})",
+                       {k: RLFT_WINDOW * n for k, n in per_iter.items()})
+        require(trainer.optimizer.updates == start_opt["updates"] + 1
+                and trainer.optimizer.mini_step == 0, f"rlft: {kind} window's update")
+        return losses, {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
 
-        eager_losses, eager_state = run(False)
-        graphed_losses, graphed_state = run(True)
-        require(trainer.graphs is not None and trainer.graphs.captures
-                == {"embedder": 1, "detector": 1, "rollout": 1},
-                f"rlft ({dtype}): captures {trainer.graphs and trainer.graphs.captures}")
-        params = {name for name, _ in trainer.model.named_parameters()}
-        diffs = {k: (graphed_state[k].double() - eager_state[k].double()).abs()
-                 for k in eager_state}
-        err = max(d.max().item() for d in diffs.values())
-        lr = max(g["lr"] for g in trainer.optimizer.adamw.param_groups)
-        step_err = max(diffs[k].max().item() for k in params) / lr
-        apart = sum(int((diffs[k] > RLFT_ATOL).sum()) for k in params)
-        share = apart / sum(diffs[k].numel() for k in params)
-        if dtype == "float32":
-            require(graphed_losses == eager_losses and step_err <= RLFT_STEP_TOL
-                    and share <= RLFT_FLIP_SHARE,
-                    f"rlft (float32): graphed losses {graphed_losses}, eager {eager_losses};"
-                    f" weights up to {step_err:.3g} lr apart (at most {RLFT_STEP_TOL}), {share:.3g}"
-                    f" of them beyond {RLFT_ATOL} (at most {RLFT_FLIP_SHARE})")
-        else:
-            np.testing.assert_allclose(graphed_losses, eager_losses, rtol=GRAPH_RTOL, atol=0)
-        walls = defaultdict(list)
-        for graphed in (False, True, True, False):
-            with eager(graphed):
-                trainer.train_step(batches[0])
-                torch.cuda.synchronize()
-                start = time.perf_counter()
-                for b in batches:
-                    trainer.train_step(b)
-                torch.cuda.synchronize()
-            walls["graphed" if graphed else "eager"].append(
-                (time.perf_counter() - start) * 1e3 / len(batches))
-        say(f"rlft train step B={TRAIN_B} {dtype}: graphed losses {graphed_losses} = eager"
-            f" {eager_losses}; after the window's update the state {err:.3g} apart, the weights"
-            f" up to {step_err:.3g} lr ({lr:g}), {apart} of them ({share:.3g}) beyond"
-            f" {RLFT_ATOL}; wall ms a step, in turns (eager, graphed, graphed, eager): eager"
-            f" {walls['eager']}, graphed {walls['graphed']}")
-        if dtype == "bfloat16":  # the recipe's dtype: the device's share of each step
-            for graphed in (False, True):
-                kind = "graphed" if graphed else "eager"
-                with eager(graphed):
-                    profile_run(f"rlft train step B={TRAIN_B} bf16 ({kind})",
-                                statistics.median(walls[kind]),
-                                lambda: trainer.train_step(batches[0]), unit=("train step", 1))
+    eager_losses, eager_state = run(False)
+    graphed_losses, graphed_state = run(True)
+    require(trainer.graphs is not None and trainer.graphs.captures
+            == {"embedder": 1, "detector": 1, "rollout": 1},
+            f"rlft ({dtype}): captures {trainer.graphs and trainer.graphs.captures}")
+    params = {name for name, _ in trainer.model.named_parameters()}
+    diffs = {k: (graphed_state[k].double() - eager_state[k].double()).abs()
+             for k in eager_state}
+    err = max(d.max().item() for d in diffs.values())
+    lr = max(g["lr"] for g in trainer.optimizer.adamw.param_groups)
+    step_err = max(diffs[k].max().item() for k in params) / lr
+    apart = sum(int((diffs[k] > RLFT_ATOL).sum()) for k in params)
+    share = apart / sum(diffs[k].numel() for k in params)
+    if exact:
+        ops = sorted({str(w.message).split(" does not have a deterministic")[0]
+                      for w in warned if "deterministic" in str(w.message)})
+        state_err = max(d.max().item() for k, d in diffs.items() if k not in params)
+        require(graphed_losses == eager_losses and step_err * lr <= RLFT_DET_ATOL,
+                f"rlft (float32, deterministic): graphed losses {graphed_losses}, eager"
+                f" {eager_losses}; weights up to {step_err * lr:.3g} apart (at most"
+                f" {RLFT_DET_ATOL}); ops with no deterministic version: {ops}")
+        say(f"rlft train step B={TRAIN_B} float32 under deterministic algorithms: graphed"
+            f" losses {graphed_losses} = eager {eager_losses}; after the window's update"
+            f" the weights up to {step_err * lr:.3g} apart (at most {RLFT_DET_ATOL}), the"
+            f" buffers {state_err:.3g}, {apart} weights beyond {RLFT_ATOL}; ops with no"
+            f" deterministic version: {ops}")
         del trainer
         torch.cuda.empty_cache()
+        return
+    if dtype == "float32":
+        require(graphed_losses == eager_losses and step_err <= RLFT_STEP_TOL
+                and share <= RLFT_FLIP_SHARE,
+                f"rlft (float32): graphed losses {graphed_losses}, eager {eager_losses};"
+                f" weights up to {step_err:.3g} lr apart (at most {RLFT_STEP_TOL}), {share:.3g}"
+                f" of them beyond {RLFT_ATOL} (at most {RLFT_FLIP_SHARE})")
+    else:
+        np.testing.assert_allclose(graphed_losses, eager_losses, rtol=GRAPH_RTOL, atol=0)
+    walls = defaultdict(list)
+    for graphed in (False, True, True, False):
+        with eager(graphed):
+            trainer.train_step(batches[0])
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for b in batches:
+                trainer.train_step(b)
+            torch.cuda.synchronize()
+        walls["graphed" if graphed else "eager"].append(
+            (time.perf_counter() - start) * 1e3 / len(batches))
+    say(f"rlft train step B={TRAIN_B} {dtype}: graphed losses {graphed_losses} = eager"
+        f" {eager_losses}; after the window's update the state {err:.3g} apart, the weights"
+        f" up to {step_err:.3g} lr ({lr:g}), {apart} of them ({share:.3g}) beyond"
+        f" {RLFT_ATOL}; wall ms a step, in turns (eager, graphed, graphed, eager): eager"
+        f" {walls['eager']}, graphed {walls['graphed']}")
+    if dtype == "bfloat16":  # the recipe's dtype: the device's share of each step
+        for graphed in (False, True):
+            kind = "graphed" if graphed else "eager"
+            with eager(graphed):
+                profile_run(f"rlft train step B={TRAIN_B} bf16 ({kind})",
+                            statistics.median(walls[kind]),
+                            lambda: trainer.train_step(batches[0]), unit=("train step", 1))
+    del trainer
+    torch.cuda.empty_cache()
 
 
 def rlft_phase(port, seed, sup_run, toy):
@@ -2979,8 +3043,8 @@ def ddp_phase(port, seed, toy):
 # --- phase 14: --steps-per-dispatch ----------------------------------------------------------
 # Each mode at N = SPD_N and 1: SPD_ITERS iterations of SPD_B rows, float32, a
 # test every SPD_N; the bf16 step times at TRAIN_B over SPD_TIME_ITERS
-# iterations, from the third on.
-SPD_N, SPD_B, SPD_ITERS, SPD_TIME_ITERS = 2, 4, 5, 8
+# iterations, from the third on (8 until the script had to fit 600 s).
+SPD_N, SPD_B, SPD_ITERS, SPD_TIME_ITERS = 2, 4, 5, 6
 
 
 def per_step_counts(port, fn):
@@ -3237,9 +3301,10 @@ def pyramid_phase(seed):
 
 
 # The bench (phase 17): python -m jolineedle_tpu_torch.bench at its full
-# config with fewer iterations, its first timed pass profiled; the part
-# benches at fewer reps.
-BENCH_ENV = {"BENCH_ITERS": "5", "BENCH_REPEATS": "3", "BENCH_SECONDARY_ITERS": "2",
+# config with fewer iterations and passes (2 passes: 3 until the script had
+# to fit 600 s; the phase checks the line's keys and launches, not its
+# spread), its first timed pass profiled; the part benches at fewer reps.
+BENCH_ENV = {"BENCH_ITERS": "5", "BENCH_REPEATS": "2", "BENCH_SECONDARY_ITERS": "2",
              "BENCH_BASELINE_MIN_S": "0"}
 # The keys of bench.py's JSON line (bench.py:420-486) and of its secondary block.
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "passes", "spread_pct",
@@ -3250,7 +3315,8 @@ BENCH_SECONDARY_KEYS = ("metric", "value", "passes", "gflops_per_env_step", "tfl
 # bench.py's nano pairing: 0.974 GFLOP an env step (the JAX package's
 # traced_flops of its rollout, 19,488,468,768 at B = 1 over 20 steps).
 BENCH_GFLOPS_PER_ENV_STEP = 0.974
-PARTS_ITERS, ATTN_ITERS, STAGE_REPS = "10", "5", "5"
+# The part benches' reps (10, 5 and 5 until the script had to fit 600 s).
+PARTS_ITERS, ATTN_ITERS, STAGE_REPS = "5", "3", "3"
 
 
 def bench_phase(port):
@@ -3315,7 +3381,8 @@ def bench_phase(port):
             if what == "analyze_trace":
                 require(out["by_class"].get("port kernels", 0) > 0,
                         "analyze_trace: no port kernel in the profiled pass")
-                say(f"analyze_trace: the profiled nano pass (1 of 3, {BENCH_ENV['BENCH_ITERS']}"
+                say(f"analyze_trace: the profiled nano pass (1 of {BENCH_ENV['BENCH_REPEATS']},"
+                    f" {BENCH_ENV['BENCH_ITERS']}"
                     f" rollouts): device busy {out['busy_pct']:.1f} % of"
                     f" {out['window_ms']:.1f} ms; by class (ms) "
                     + json.dumps({k: round(v, 3) for k, v in out["by_class"].items()}))
@@ -3351,18 +3418,46 @@ def import_port():
                            fixed_training_shape=fixed_training_shape)
 
 
+#: The phases by group, in the order a whole run takes them; ``--group``
+#: runs one group, and a phase another group's phase feeds first (``NEEDS``).
+GROUPS = {
+    "kernels": ("kernels", "reference"),
+    "serve": ("serve", "jax_files", "full_prefix", "smoke_conv"),
+    "train": ("pool", "train", "supervised", "resume_jax", "eval", "oracle"),
+    "recipe": ("recipe", "rlft"),
+    "ddp": ("ddp", "spd"),
+    "bench": ("pyramid", "bench"),
+}
+NEEDS = {"eval": ("jax_files",)}
+
+
+def phases_of(group):
+    """The phases that ``--group group`` runs (all of them for None)."""
+    if group is None:
+        return [p for phases in GROUPS.values() for p in phases]
+    own = list(GROUPS[group])
+    needed = [n for p in own for n in NEEDS.get(p, ()) if n not in own]
+    return list(dict.fromkeys(needed + own))
+
+
 def main(argv=None) -> int:
     global CARD
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device-data-cache", choices=("auto", "on", "off"), default="auto",
                         help="the train CLI's flag in both train phases (off: stream the pixels)")
+    parser.add_argument("--group", choices=sorted(GROUPS), default=None,
+                        help="run one group of phases (and what it needs); default: every"
+                        " phase, with the kernels line")
     args = parser.parse_args(argv)
     script_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 1
     port = import_port()
+    # cuBLAS's deterministic workspace, read when its first handle is made:
+    # phase 11d's deterministic pass needs it.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3397,57 +3492,85 @@ def main(argv=None) -> int:
     port.tconfig.save_config(model_config, train_config)
     model_dir = work_dir / train_config.env_name
     port.save_model(model, model_dir, best=True)
-
-    # 3. kernels
     shapes = path_shapes(model)
-    rows = kernel_phase(port.kconv, shapes, args.seed)
-    new_rows = new_kernel_phase(port, args.seed)
-    wide_rows = wide_variant_phase(port.kconv, args.seed)
-
-    # 4. reference
     state = model.state_dict()
-    models = reference_phase(model_config, actions_info, state, args.seed)
-    rollout_reference(models, train_config, args.seed)
-    train_reference(models, state, train_config, args.seed)
-    supervised_reference(models, state, args.seed)
-    del models, model
+    del model
 
-    # 5-13. the paths, each read on its own, and the device pool
-    toy = toy_dataset(port, args.seed)
-    by_path = {"serve": serve_phase(port, model_dir, args.seed),
-               "jax_files": jax_files_phase(port, model_dir, args.seed),
-               "full_prefix": full_prefix_phase(port, model_dir, state, args.seed),
-               "smoke_conv": Counter(smoke_conv_phase(port))}
-    pool_phase(port, args.seed, toy)
-    torch.cuda.empty_cache()
-    by_path["train"] = train_phase(port, args.seed, toy, args.device_data_cache)
-    torch.cuda.empty_cache()
-    by_path["supervised"], sup_run = sup_train_phase(port, args.seed, toy, args.device_data_cache)
-    torch.cuda.empty_cache()
-    by_path["resume_jax"] = resume_jax_phase(port, args.seed, toy, args.device_data_cache)
-    torch.cuda.empty_cache()
-    by_path["recipe"], recipe_rows, recipe_run = recipe_phase(port, args.seed)
-    torch.cuda.empty_cache()
-    by_path["rlft"], rlft_rows = rlft_phase(port, args.seed, *recipe_run)
-    recipe_rows += rlft_rows
-    torch.cuda.empty_cache()
-    by_path["eval"] = eval_phase(port, args.seed, model_dir, sup_run)
-    torch.cuda.empty_cache()
-    by_path["ddp"] = ddp_phase(port, args.seed, toy)
-    torch.cuda.empty_cache()
-    by_path["spd"] = spd_phase(port, args.seed, toy)
-    torch.cuda.empty_cache()
-    by_path["oracle"] = oracle_phase(port, sup_run[0])
-    pyramid_phase(args.seed)
-    torch.cuda.empty_cache()
-    by_path["bench"] = bench_phase(port)
+    seed, cache = args.seed, args.device_data_cache
+    done, by_path, rows = {}, {}, {}
+
+    def toy():  # phases 9-11b and 13-14's toy set, written once
+        if "toy" not in done:
+            done["toy"] = toy_dataset(port, seed)
+        return done["toy"]
+
+    def kernels():  # 3. the kernels against their plain versions
+        rows["path"] = kernel_phase(port.kconv, shapes, seed)
+        rows["new"] = new_kernel_phase(port, seed)
+        rows["wide"] = wide_variant_phase(port.kconv, seed)
+
+    def reference():  # 4. the card against the CPU
+        models = reference_phase(model_config, actions_info, state, seed)
+        rollout_reference(models, train_config, seed)
+        train_reference(models, state, train_config, seed)
+        supervised_reference(models, state, seed)
+
+    def supervised():
+        by_path["supervised"], done["sup_run"] = sup_train_phase(port, seed, toy(), cache)
+
+    def recipe():
+        by_path["recipe"], rows["recipe"], done["recipe_run"] = recipe_phase(port, seed)
+
+    def rlft():
+        by_path["rlft"], rlft_rows = rlft_phase(port, seed, *done["recipe_run"])
+        rows["recipe"] = rows["recipe"] + rlft_rows
+
+    run = {
+        "kernels": kernels,
+        "reference": reference,
+        # 5-8. the paths, each read on its own
+        "serve": lambda: by_path.update(serve=serve_phase(port, model_dir, seed)),
+        "jax_files": lambda: by_path.update(jax_files=jax_files_phase(port, model_dir, seed)),
+        "full_prefix": lambda: by_path.update(
+            full_prefix=full_prefix_phase(port, model_dir, state, seed)),
+        "smoke_conv": lambda: by_path.update(smoke_conv=Counter(smoke_conv_phase(port))),
+        # 9-12, 15. the device pool, the trainers, the eval surface
+        "pool": lambda: pool_phase(port, seed, toy()),
+        "train": lambda: by_path.update(train=train_phase(port, seed, toy(), cache)),
+        "supervised": supervised,
+        "resume_jax": lambda: by_path.update(
+            resume_jax=resume_jax_phase(port, seed, toy(), cache)),
+        "eval": lambda: by_path.update(
+            eval=eval_phase(port, seed, model_dir, done["sup_run"])),
+        "oracle": lambda: by_path.update(oracle=oracle_phase(port, done["sup_run"][0])),
+        # 11c-11d. the recipes
+        "recipe": recipe,
+        "rlft": rlft,
+        # 13-14. data parallelism and steps per dispatch
+        "ddp": lambda: by_path.update(ddp=ddp_phase(port, seed, toy())),
+        "spd": lambda: by_path.update(spd=spd_phase(port, seed, toy())),
+        # 16-17. the pyramid and the bench
+        "pyramid": lambda: pyramid_phase(seed),
+        "bench": lambda: by_path.update(bench=bench_phase(port)),
+    }
+    seconds = {}
+    for phase in phases_of(args.group):
+        start = time.perf_counter()
+        run[phase]()
+        torch.cuda.empty_cache()
+        seconds[phase] = round(time.perf_counter() - start, 1)
+        say(f"phase {phase}: {seconds[phase]} s")
     launches = sum(by_path.values(), Counter())
-    for name in KERNEL_NAMES:
-        require(launches[name] > 0, f"{name} was launched no time on its path")
-    say(f"chip_smoke: every phase passed in {time.perf_counter() - script_start:.1f} s")
-
-    print(json.dumps({"kernels": kernels_json(rows, new_rows, wide_rows, recipe_rows, launches,
-                                              by_path)}), flush=True)
+    say(f"chip_smoke: every phase passed in {time.perf_counter() - script_start:.1f} s;"
+        f" by phase {json.dumps(seconds)}")
+    if args.group is None:
+        for name in KERNEL_NAMES:
+            require(launches[name] > 0, f"{name} was launched no time on its path")
+        print(json.dumps({"kernels": kernels_json(rows["path"], rows["new"], rows["wide"],
+                                                  rows["recipe"], launches, by_path)}),
+              flush=True)
+    else:
+        print(json.dumps({"group": args.group, "launches_by_path": by_path}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,10 +5,14 @@
 # time_recipe.py (or the supervised run directory the caller names), then
 # run_rl_finetune_stop.sh <work>/rlft <sup run> yolox-s under time_recipe.py,
 # then eval_checkpoint.py --ckpt best on the fine-tune, which must agree
-# with its final validation within 1e-6. The runs stay where they were
+# with its final validation within 1e-6, and eval_checkpoint.py --ckpt last
+# on the weights the fine-tune ended its training with (time_recipe.py
+# --keep-last copies them into <work_dir>/rlft_last before the final
+# validation writes the best's over them). The runs stay where they were
 # trained; the small files (logs, metrics, best_model.txt, config.json, the
-# eval curves, the cross-check and the quality bands) go to the output
-# directory.
+# sampled tests' curves, the cross-check, the quality bands of the best and
+# the last checkpoint in bands.json, each leg's pace and clocks in
+# pace.json) go to the output directory.
 #
 # Usage: SEED=1 sh jolineedle_tpu_torch/scripts/run_rlft_seed.sh [out_dir] \
 #          [work_dir] [sup_run_dir]
@@ -20,7 +24,8 @@
 #                checkpoint_best.pt, and metrics.json for the warm start's
 #                mAP); default: train one at SEED into <work_dir>/sup
 #
-# SEED is the supervised leg's (the fine-tune's own seed is the recipe's, 2).
+# SEED is the supervised leg's; RLFT_SEED the fine-tune's (default 2, the
+# recipe's own --seed: a later --seed in EXTRA_FLAGS takes its place).
 # A supervised leg trained here also leaves its checkpoint_best.pt,
 # config.json and metrics.json in <out_dir>/sup_run (about 40 MB), to start
 # a later fine-tune from.
@@ -30,6 +35,7 @@
 # 700 W power limit, PERF.md), and about 1,500 s without it.
 set -e
 SEED=${SEED:-1}
+RLFT_SEED=${RLFT_SEED:-2}
 OUT=${1:-chiprun_out/rlft_s$SEED}
 WORK=${2:-build/runs/rlft_s$SEED}
 SUP_RUN=${3:-}
@@ -50,21 +56,26 @@ if [ -z "$SUP_RUN" ]; then
   cp "$SUP_RUN/checkpoint_best.pt" "$SUP_RUN/config.json" "$SUP_RUN/metrics.json" \
     "$OUT/sup_run/"
 fi
-python -m jolineedle_tpu_torch.scripts.time_recipe --test-every 1000 --log "$OUT/log.txt" \
+RUN="$WORK/rlft/r3_rlft_yolox-s"
+EXTRA_FLAGS="${EXTRA_FLAGS:-} --seed $RLFT_SEED" \
+  python -m jolineedle_tpu_torch.scripts.time_recipe --test-every 1000 --log "$OUT/log.txt" \
+  --keep-last "$RUN" "$WORK/rlft_last" \
   -- sh jolineedle_tpu_torch/scripts/run_rl_finetune_stop.sh "$WORK/rlft" "$SUP_RUN" yolox-s \
   | tail -n 1 > "$OUT/time_recipe.json"
-RUN="$WORK/rlft/r3_rlft_yolox-s"
 cp "$RUN/metrics.json" "$RUN/best_model.txt" "$RUN/config.json" "$OUT/"
 python -m jolineedle_tpu_torch.scripts.dump_metric_curves "$RUN" map yolo_map stop \
   prop_patches_found episode_length > "$OUT/curves.md"
 python -m jolineedle_tpu_torch.scripts.eval_checkpoint "$RUN" --ckpt best \
   | tee "$OUT/eval_checkpoint.txt" | tail -n 1
-python - "$OUT" "$SUP_RUN" <<'PY'
-import json, sys
-out, sup_run = sys.argv[1:]
+python -m jolineedle_tpu_torch.scripts.eval_checkpoint "$WORK/rlft_last" --ckpt last \
+  | tee "$OUT/eval_checkpoint_last.txt" | tail -n 1
+python - "$OUT" "$SUP_RUN" "$RLFT_SEED" <<'PY'
+import json, os, sys
+out, sup_run, rlft_seed = sys.argv[1:]
 final = json.load(open(f"{out}/metrics.json"))
-line = [l for l in open(f"{out}/eval_checkpoint.txt") if l.startswith("FULL-TEST: ")][-1]
-check = json.loads(line[len("FULL-TEST: "):])
+full_test = lambda name: json.loads([l for l in open(f"{out}/{name}")
+                                     if l.startswith("FULL-TEST: ")][-1][len("FULL-TEST: "):])
+check, last = full_test("eval_checkpoint.txt"), full_test("eval_checkpoint_last.txt")
 keys = ("map", "yolo_map", "stop_used", "stop_misused", "prop_patches_found",
         "episode_length")
 diff = {k: abs(final[k] - check[k]) for k in keys}
@@ -79,10 +90,21 @@ try:
     bands["map_above_warm_start"] = (warm + 1e-9, 1.0)
 except FileNotFoundError:
     warm = None
-value = dict(final, map_above_warm_start=final["map"])
-verdict = {k: {"value": value[k], "band": band, "in": band[0] <= value[k] <= band[1]}
-           for k, band in bands.items()}
-json.dump({"warm_start_map": warm, "bands": verdict}, open(f"{out}/bands.json", "w"), indent=1)
-print("bands:", json.dumps({k: v["in"] for k, v in verdict.items()}))
+verdict = {}
+for name, row in (("best", final), ("last", last)):
+    value = dict(row, map_above_warm_start=row["map"])
+    verdict[name] = {k: {"value": value[k], "band": band, "in": band[0] <= value[k] <= band[1]}
+                     for k, band in bands.items()}
+    print(f"bands ({name} checkpoint):", json.dumps({k: v["in"] for k, v in verdict[name].items()}))
+json.dump({"rlft_seed": int(rlft_seed), "warm_start_map": warm, **verdict},
+          open(f"{out}/bands.json", "w"), indent=1)
+# Each leg's pace and the clocks nvidia-smi reported meanwhile (time_recipe).
+legs = {"supervised": "sup_time_recipe.json", "finetune": "time_recipe.json"}
+pace = {leg: {k: v for k, v in json.load(open(f"{out}/{name}")).items()
+              if k in ("card", "wall_s", "s_per_iter", "test_s", "final_s", "max_sm_clock_mhz",
+                       "sm_clock_mhz", "mem_clock_mhz", "max_power_draw_w")}
+        for leg, name in legs.items() if os.path.exists(f"{out}/{name}")}
+json.dump(pace, open(f"{out}/pace.json", "w"), indent=1)
+print("pace:", json.dumps(pace))
 sys.exit(0 if max(diff.values()) <= 1e-6 else 1)
 PY

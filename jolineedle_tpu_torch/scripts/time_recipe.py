@@ -15,10 +15,21 @@ each test cycle (a span's excess over that pace), the final validation's
 seconds (from the last printed iteration to the end: the iterations after
 it, the best checkpoint's reload and the full test), the peak of
 ``memory.used`` that ``nvidia-smi`` reported (the caching allocator's
-reservation and the context, above ``max_memory_allocated``) and its
-highest power draw, and the CLI's own closing lines: its peak
-``max_memory_allocated`` and its kernels' launches. Needs an NVIDIA GPU
-and ``nvidia-smi``.
+reservation and the context, above ``max_memory_allocated``), its
+highest power draw, the SM and memory clocks it reported (median and
+lowest, in MHz, beside the card's maximum SM clock), and the CLI's own
+closing lines: its peak ``max_memory_allocated`` and its kernels'
+launches. Needs an NVIDIA GPU and ``nvidia-smi``.
+
+``--keep-last RUN_DIR DEST`` keeps the weights the run ends its training
+with. The final validation reloads the best checkpoint and, at its end,
+writes those weights over the last one (``checkpoint.pt``), as the JAX
+package does; so when the CLI prints the line that starts it, the command's
+process is paused, ``RUN_DIR``'s ``checkpoint.pt`` (the last test's
+weights: the final iteration's when ``--max-iters`` is a multiple of
+``--test-every``) and ``config.json`` are copied into ``DEST``, and the
+process goes on. ``eval_checkpoint.py DEST --ckpt last`` then tests them.
+The recipe scripts ``exec`` the CLI, so the command's process is the CLI's.
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ import argparse
 import json
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -37,7 +50,9 @@ from pathlib import Path
 ITER_LINE = re.compile(r"^iter (\d+): loss ")
 PEAK_LINE = re.compile(r"^peak device memory: ")
 LAUNCH_LINE = "kernel launches: "
+FINAL_VALIDATION_LINE = "Loading best checkpoint for validation"
 SAMPLE_EVERY_S = 5.0  # between nvidia-smi samples
+SAMPLED = "memory.used,power.draw,clocks.sm,clocks.mem"  # each sample's fields
 
 
 def query_gpu(fields: str) -> list:
@@ -48,10 +63,13 @@ def query_gpu(fields: str) -> list:
 
 def sample_memory(stop: threading.Event, every: float, samples: list) -> None:
     while not stop.wait(every):
-        out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,power.draw",
+        out = subprocess.run(["nvidia-smi", f"--query-gpu={SAMPLED}",
                               "--format=csv,noheader,nounits"], capture_output=True, text=True)
         if out.returncode == 0 and out.stdout.strip():
-            samples.append([float(v) for v in out.stdout.splitlines()[0].split(",")])
+            try:
+                samples.append([float(v) for v in out.stdout.splitlines()[0].split(",")])
+            except ValueError:  # a field read "[N/A]"
+                pass
 
 
 def pace(iters: list, test_every: int) -> dict:
@@ -66,12 +84,41 @@ def pace(iters: list, test_every: int) -> dict:
     return {"s_per_iter": s_iter, "s_per_iter_spans": len(clean), "test_s": tests}
 
 
+def clocks(samples: list) -> dict:
+    """The sampled SM and memory clocks (MHz): median and lowest, and the
+    card's maximum SM clock."""
+    try:
+        out = {"max_sm_clock_mhz": float(query_gpu("clocks.max.sm")[0].split()[0])}
+    except ValueError:  # "[N/A]"
+        out = {"max_sm_clock_mhz": None}
+    for i, name in ((2, "sm"), (3, "mem")):
+        values = [s[i] for s in samples]
+        out[f"{name}_clock_mhz"] = ({"median": statistics.median(values), "min": min(values)}
+                                    if values else None)
+    return out
+
+
+def keep_last(pid: int, run_dir: Path, dest: Path) -> None:
+    """Copy ``run_dir``'s last checkpoint and config into ``dest`` while the
+    process ``pid`` is stopped."""
+    os.kill(pid, signal.SIGSTOP)
+    try:
+        dest.mkdir(parents=True, exist_ok=True)
+        for name in ("checkpoint.pt", "config.json"):
+            shutil.copy2(run_dir / name, dest / name)
+    finally:
+        os.kill(pid, signal.SIGCONT)
+
+
 def main(argv=None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--log", type=Path, required=True,
                         help="file for the stamped output (its folder is made)")
     parser.add_argument("--test-every", type=int, default=2500,
                         help="the recipe's --test-every: the spans that hold a test")
+    parser.add_argument("--keep-last", nargs=2, type=Path, metavar=("RUN_DIR", "DEST"),
+                        help="copy RUN_DIR's last checkpoint and config into DEST when the"
+                        " final validation starts")
     parser.add_argument("command", nargs=argparse.REMAINDER,
                         help="the command, after --")
     args = parser.parse_args(argv)
@@ -85,7 +132,7 @@ def main(argv=None) -> dict:
     samples, stop = [], threading.Event()
     sampler = threading.Thread(target=sample_memory, args=(stop, SAMPLE_EVERY_S, samples),
                                daemon=True)
-    iters, peak_line, launches = [], None, None
+    iters, peak_line, launches, kept = [], None, None, None
     start = time.perf_counter()
     sampler.start()
     try:
@@ -103,6 +150,9 @@ def main(argv=None) -> dict:
                     peak_line = line.strip()
                 if line.startswith(LAUNCH_LINE):
                     launches = json.loads(line[len(LAUNCH_LINE):])
+                if args.keep_last and line.startswith(FINAL_VALIDATION_LINE):
+                    keep_last(proc.pid, *args.keep_last)
+                    kept = str(args.keep_last[1])
             rc = proc.wait()
     finally:
         stop.set()
@@ -113,7 +163,9 @@ def main(argv=None) -> dict:
               "final_s": round(wall - iters[-1][1], 3) if iters else None,
               "peak_memory_used_mib": max((s[0] for s in samples), default=None),
               "max_power_draw_w": max((s[1] for s in samples), default=None),
-              "trainer_peak": peak_line, "kernel_launches": launches}
+              **clocks(samples),
+              "trainer_peak": peak_line, "kernel_launches": launches,
+              **({"kept_last": kept} if args.keep_last else {})}
     print(json.dumps(result), flush=True)
     return result
 

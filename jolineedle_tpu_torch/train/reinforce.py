@@ -79,6 +79,25 @@ def fixed_training_shape(dataset, patch_size: int) -> Tuple[int, int]:
     return round_up(max_h), round_up(max_w)
 
 
+def teacher_forced(model, env: NeedleEnv,
+                   ro: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``[B, T]`` log-probabilities and entropies of a rollout's taken
+    actions, from one teacher-forced forward in eval mode over the patches
+    at the rollout's positions (the previous actions ``[0, a_0 .. a_{T-2}]``):
+    what the rollout's own decode steps computed, differentiable."""
+    actions = ro["actions"]
+    B, T = actions.shape
+    positions = ro["positions"][:, :T]
+    patches = env.gather_patches_at(positions)
+    prev_actions = torch.cat([torch.zeros_like(actions[:, :1]), actions[:, :-1]], dim=1)
+    classes = torch.zeros(B, dtype=torch.long, device=actions.device)
+    logits, _ = model(patches, prev_actions, classes, positions, train=False)
+    logp_all = F.log_softmax(logits.float(), dim=-1)
+    logprobs = logp_all.gather(-1, actions[..., None])[..., 0]
+    entropies = -(logp_all.exp() * logp_all).sum(-1)
+    return logprobs, entropies
+
+
 def reinforce_loss(
     model,
     env: NeedleEnv,
@@ -91,23 +110,13 @@ def reinforce_loss(
     """The REINFORCE loss of a sampled rollout ``ro`` (from :func:`rollout`
     with ``collect=("actions",)``), differentiable in the model's weights.
 
-    The log-probabilities and entropies of the taken actions come from one
-    teacher-forced forward in eval mode over the patches at the rollout's
-    positions; ``ro["returns"]`` and ``ro["logit_masks"]`` are data.
+    The log-probabilities and entropies of the taken actions come from
+    :func:`teacher_forced`; ``ro["returns"]`` and ``ro["logit_masks"]`` are
+    data.
     Returns (loss, metrics) as ``reinforce.py:168-187`` computes them.
     Inside ``parallel.mesh.data_parallel`` the mask sum that divides both
     terms is the global batch's: the loss is this rank's share."""
-    actions = ro["actions"]
-    B, T = actions.shape
-    positions = ro["positions"][:, :T]
-    patches = env.gather_patches_at(positions)
-    prev_actions = torch.cat([torch.zeros_like(actions[:, :1]), actions[:, :-1]], dim=1)
-    classes = torch.zeros(B, dtype=torch.long, device=actions.device)
-    logits, _ = model(patches, prev_actions, classes, positions, train=False)
-    logp_all = F.log_softmax(logits.float(), dim=-1)
-    logprobs = logp_all.gather(-1, actions[..., None])[..., 0]
-    entropies = -(logp_all.exp() * logp_all).sum(-1)
-
+    logprobs, entropies = teacher_forced(model, env, ro)
     masks = ro["logit_masks"]
     returns = ro["returns"]
     advantages = (returns - return_mean) / (return_std + 1e-8) if reward_norm else returns
