@@ -165,7 +165,32 @@ ends with its launches by path. Each phase prints its seconds. The phases:
    in bf16, its busy share. Then the float32 comparison again under
    ``torch.use_deterministic_algorithms`` and cuDNN's deterministic
    algorithms (the graphs captured under them; the flags restored after,
-   also on a failure): losses equal and every weight within 1e-7;
+   also on a failure): losses equal and every weight within 1e-7. The
+   float32 passes, which time nothing, run while the CLI does (in its own
+   process); the bf16 pass, timed, after it;
+11e. shared: the recipes' default pairing (the yolox-nano detector's own
+   backbone as the embedder, no ``--gpt-backbone``) at 11c's flags and then
+   at 11d's, on 11c's toy set: one supervised step (no warm-up, so that its
+   update is at the recipe's full learning rate; 8 steps, each with its
+   update, under deterministic algorithms), then one fine-tune window
+   of 4 iterations from an 8-action state of the pairing (weights and BN
+   statistics from ``--seed``, grafted onto the STOP model), each graphed
+   (the embedder as a forward-only CUDA graph of the shared backbone,
+   ``TrainGraphs.shared_embedder``, beside the detector's and the
+   rollout's; the embedder and the rollout run eagerly at their first
+   step and are captured at the next, so the supervised graphed run starts
+   after one graphed step that the state's restore undoes) against eager
+   from one state on the same batches: float32
+   losses equal, after the update every weight by 11d's rule and the BN
+   buffers within 1e-6; bf16 losses within rtol 1e-6; under deterministic
+   algorithms losses equal and weights and buffers within 1e-7. On each route a step with the detection loss off
+   leaves no gradient on the shared backbone and one on the embedder's
+   conv. Launches exact: 3 flash a supervised step (its train-mode convs
+   are PyTorch's); a fine-tune iteration the rollout's 20 embedder calls
+   and the recompute's one (252 ``dwblock_bn_silu``, 21
+   ``conv3x3_bn_silu``) and 3 flash. These passes time nothing and run
+   beside 11d's CLI. Then the embedder's kernels at the
+   recompute's 16 x 20 patches against their plain versions;
 12. eval and report: a toy test set of 10 images of 3 x 3 patches (1344
    px), so that ``--failure-select-rate`` 0.1 picks one worst image.
    ``--measure-flops`` through the train CLI on the card and on the CPU
@@ -211,7 +236,11 @@ ends with its launches by path. Each phase prints its seconds. The phases:
    digest they agreed on. With more than two cards, bf16 steps of B = 8 a
    rank at W = 1, 2 and all of them, one rank per card, 3 iterations a
    mode: the wall ms per step, images/s and the gradient all-reduce's ms
-   and bytes. With one card, a line says (e) was not run;
+   and bytes. With one card, a line says (e) was not run. The two ranks of
+   (a) and (d) run in one launch with phase 14's two-rank jobs, started
+   first; this process runs W = 1 of (a) and (c) beside their untimed
+   jobs, then times W = 1 of (d) while they wait, then lets them time (d)
+   while it waits;
 14. steps per dispatch: each trainer through the train CLI at
    ``--steps-per-dispatch`` 2 and 1, float32 at B = 4 on phase 9's toy
    set, accumulation 2, a test every 2 iterations, 5 iterations (a short
@@ -220,7 +249,8 @@ ends with its launches by path. Each phase prints its seconds. The phases:
    and std within rtol 1e-4, each train step's kernel launches and each
    run's total equal; each CLI error for an N that does not divide raises
    before any launch; two ranks sharing the card over gloo at N = 2
-   against N = 1 (REINFORCE, 4 iterations) by phase 13's comparison; bf16
+   against N = 1 (REINFORCE, 4 iterations; run by phase 13's launch) by
+   phase 13's comparison; bf16
    step times at B = 16, N = 1 and 2 in turns (1, 2, 2, 1, 1, 2);
 15. oracle ceiling: ``python -m jolineedle_tpu_torch.scripts.
    eval_oracle_ceiling`` on phase 11's run on the card: its
@@ -284,6 +314,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from collections import Counter, defaultdict
@@ -396,6 +427,11 @@ RLFT_STEP_TOL, RLFT_ATOL, RLFT_FLIP_SHARE = 2.0, 1e-7, 1e-2
 # cuDNN's deterministic algorithms (the graphs captured under them): every
 # weight within RLFT_DET_ATOL of the eager step's after the update.
 RLFT_DET_ATOL = 1e-7
+# The shared pairing's phase: its supervised steps (one update each) graphed
+# against eager, SHARED_SUP_DET_STEPS of them under deterministic algorithms
+# (the graphs replayed across updates: every weight must stay equal); its
+# fine-tune runs one window of RLFT_WINDOW.
+SHARED_SUP_STEPS, SHARED_SUP_DET_STEPS = 1, 8
 # The plain 3x3 conv: the smoke script's default and the nano stem.
 PLAIN_CONV_SHAPES = [(8, 56, 56, 16, 32), (N_PATCHES, PATCH // 2, PATCH // 2, 12, 16)]
 # The dense 3x3 convs of a wider variant, held and timed beside the path.
@@ -2267,7 +2303,8 @@ def graphed_against_eager(port, run_dir, toy, seed):
         eager_losses, eager_state = run(False)
         graphed_losses, graphed_state = run(True)
         require(trainer.graphs is not None
-                and trainer.graphs.captures == {"embedder": 1, "detector": 1, "rollout": 0},
+                and trainer.graphs.captures
+                == {"embedder": 1, "shared_embedder": 0, "detector": 1, "rollout": 0},
                 f"graphed step ({dtype}): captures {trainer.graphs and trainer.graphs.captures}")
         np.testing.assert_allclose(graphed_losses, eager_losses, rtol=GRAPH_RTOL, atol=0)
         err = max((graphed_state[k].double() - eager_state[k].double()).abs().max().item()
@@ -2367,22 +2404,12 @@ def recipe_phase(port, seed):
     return Counter(counts), rows, (run_dir, toy)
 
 
-# --- phase 11d: the fine-tune -------------------------------------------------------------
-def rlft_graphed_against_eager(port, run_dir, toy, seed, per_iter):
-    """The fine-tune's train step with its CUDA graphs (the rollout, the
-    recompute's embedder, the detector: ``train/graphs.py``) against the
-    eager step, from one state on the same batches over RLFT_WINDOW
-    iterations (one accumulation window and its update, the optimizer's
-    first), in float32 (losses equal; weights by RLFT_STEP_TOL and
-    RLFT_FLIP_SHARE) and in bfloat16 as the recipe runs (losses within
-    GRAPH_RTOL), each run launching ``per_iter`` an iteration; then the
-    wall ms of a step each way, in turns, and in bfloat16 each one's busy
-    share. Then the float32 pass again under :func:`deterministic`: every
-    weight within RLFT_DET_ATOL."""
-    flags_train, flags_model = port.tconfig.config_from_file(run_dir / "config.json")
-    for dtype, exact in (("float32", False), ("bfloat16", False), ("float32", True)):
-        with deterministic() if exact else contextlib.nullcontext() as warned:
-            rlft_window(port, flags_train, flags_model, toy, seed, per_iter, dtype, warned)
+# --- phases 11d-11e: the fine-tune, and the shared pairing ---------------------------------
+#: 11d's passes that hold no time, which run beside 11d's CLI, and the one
+#: that times the steps, with the card to itself; 11e's, all beside the CLI.
+UNTIMED_PASSES = (("float32", False), ("float32", True))
+TIMED_PASSES = (("bfloat16", False),)
+SHARED_PASSES = (("float32", False), ("bfloat16", False), ("float32", True))
 
 
 @contextlib.contextmanager
@@ -2405,33 +2432,85 @@ def deterministic():
             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2:]
 
 
-def rlft_window(port, flags_train, flags_model, toy, seed, per_iter, dtype, warned):
-    """One pass of :func:`rlft_graphed_against_eager` in ``dtype``; under
-    :func:`deterministic` (``warned`` is then its list of warnings) the
-    float32 weights within RLFT_DET_ATOL and no timing."""
+def backbone_gets_no_gradient(trainer, batch, what):
+    """One train step of ``trainer`` on ``batch`` with the detection loss
+    off: when the optimizer is handed the gradients, the shared detector
+    backbone holds none (the decision or REINFORCE loss stops at its FPN;
+    only the detector's loss trains it), while the embedder's own conv
+    holds one. Returns the two largest gradients."""
+    model, cfg, step = trainer.model, trainer.config, trainer.optimizer.step
+    seen = []
+
+    def largest(params):
+        return max(0.0 if p.grad is None else p.grad.abs().max().item() for p in params)
+
+    def record():
+        seen.append((largest(model.yolox.backbone.parameters()),
+                     largest([model.embed_fpn_conv.weight])))
+        step()
+
+    detection = cfg.detection_enabled
+    cfg.detection_enabled = False
+    try:
+        with mock.patch.object(trainer.optimizer, "step", record):
+            trainer.train_step(batch)
+    finally:
+        cfg.detection_enabled = detection
+    backbone, head = seen[-1]
+    require(backbone == 0.0 and head > 0.0,
+            f"{what}: gradients on the shared backbone {backbone}, on the embedder's conv {head}")
+    return backbone, head
+
+
+def graphed_window(port, flags_train, flags_model, toy, seed, per_iter, dtype, warned,
+                   what="rlft", steps=RLFT_WINDOW, captures=None, shared=False, timed=True,
+                   warm=False):
+    """``steps`` train steps (whole accumulation windows) of the trainer
+    that the flags build, graphed against eager from one state on the same
+    batches, in ``dtype``, each run launching ``per_iter`` a step; the
+    graphs captured as ``captures`` says (default: the fine-tune's
+    ``gpt_backbone`` pairing). float32: losses equal, and after the
+    windows' updates every weight within RLFT_STEP_TOL learning rates and
+    all but RLFT_FLIP_SHARE of them within RLFT_ATOL; bfloat16: losses
+    within GRAPH_RTOL; then, when ``timed`` (nothing else on the card), the
+    wall ms of a step each way, in turns, and in bfloat16 each one's busy
+    share. Under :func:`deterministic`
+    (``warned`` is then its list of warnings) every weight within
+    RLFT_DET_ATOL and no timing. ``shared`` (the shared pairing): the BN
+    buffers within GRAPH_ATOL (RLFT_DET_ATOL under :func:`deterministic`),
+    and on each route :func:`backbone_gets_no_gradient`. ``warm``: the
+    graphed run starts after one graphed step that the restores undo, so
+    that its steps are all replays of graphs captured eager-first
+    (``TrainGraphs._eager_then_graph``). Returns the launches of the eager
+    and the graphed run."""
     from jolineedle_tpu_torch.parallel import mesh
 
     exact = warned is not None
+    captures = captures or {"embedder": 1, "shared_embedder": 0, "detector": 1, "rollout": 1}
     train_config, model_config = copy.deepcopy(flags_train), copy.deepcopy(flags_model)
     model_config.compute_dtype = dtype
-    train_config.work_dir = str(toy.parent / "rlft_graphs")
+    train_config.work_dir = str(toy.parent / f"{what.replace(' ', '_')}_graphs")
     trainer = port.build_trainer(mesh.single(torch.device(DEVICE)), train_config,
                                  model_config, toy, log=False)
     trainer.pool = trainer.train_pool()
-    require(trainer.pool is not None and trainer.optimizer.every_k == RLFT_WINDOW,
-            f"rlft ({dtype}): the pool and a window of {RLFT_WINDOW}")
+    every_k = trainer.optimizer.every_k
+    require(trainer.pool is not None and steps % every_k == 0,
+            f"{what} ({dtype}): the pool and whole windows of {every_k} in {steps} steps")
     rng = np.random.default_rng(seed)
     n_train = len(trainer.train_dataset)
     batches = [trainer.build_batch(rng.integers(0, n_train, TRAIN_B).tolist(), seed + i)
-               for i in range(RLFT_WINDOW)]
+               for i in range(steps)]
     start_state = copy.deepcopy(trainer.model.state_dict())
     start_opt = copy.deepcopy(trainer.optimizer.state_dict())
     start_gen = trainer.generator.get_state()
     eager = lambda graphed: (contextlib.nullcontext() if graphed
                              else mock.patch.object(trainer, "step_graphs", lambda: None))
+    launches = Counter()
 
     def run(graphed):
         kind = "graphed" if graphed else "eager"
+        if graphed and warm:
+            trainer.train_step(batches[0])
         trainer.model.load_state_dict(start_state)
         trainer.optimizer.load_state_dict(copy.deepcopy(start_opt))
         trainer.generator.set_state(start_gen)
@@ -2439,17 +2518,17 @@ def rlft_window(port, flags_train, flags_model, toy, seed, per_iter, dtype, warn
         with eager(graphed):
             losses = [float(trainer.train_step(b)["loss"]) for b in batches]
         torch.cuda.synchronize()
-        check_launches(port, f"rlft: {RLFT_WINDOW} {kind} steps ({dtype})",
-                       {k: RLFT_WINDOW * n for k, n in per_iter.items()})
-        require(trainer.optimizer.updates == start_opt["updates"] + 1
-                and trainer.optimizer.mini_step == 0, f"rlft: {kind} window's update")
+        launches.update(check_launches(port, f"{what}: {steps} {kind} steps ({dtype})",
+                                       {k: steps * n for k, n in per_iter.items()}))
+        require(trainer.optimizer.updates == start_opt["updates"] + steps // every_k
+                and trainer.optimizer.mini_step == 0, f"{what}: {kind} windows' updates")
         return losses, {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
 
     eager_losses, eager_state = run(False)
     graphed_losses, graphed_state = run(True)
-    require(trainer.graphs is not None and trainer.graphs.captures
-            == {"embedder": 1, "detector": 1, "rollout": 1},
-            f"rlft ({dtype}): captures {trainer.graphs and trainer.graphs.captures}")
+    require(trainer.graphs is not None and trainer.graphs.captures == captures,
+            f"{what} ({dtype}): captures {trainer.graphs and trainer.graphs.captures},"
+            f" expected {captures}")
     params = {name for name, _ in trainer.model.named_parameters()}
     diffs = {k: (graphed_state[k].double() - eager_state[k].double()).abs()
              for k in eager_state}
@@ -2458,30 +2537,50 @@ def rlft_window(port, flags_train, flags_model, toy, seed, per_iter, dtype, warn
     step_err = max(diffs[k].max().item() for k in params) / lr
     apart = sum(int((diffs[k] > RLFT_ATOL).sum()) for k in params)
     share = apart / sum(diffs[k].numel() for k in params)
+    state_err = max(d.max().item() for k, d in diffs.items() if k not in params)
+    no_grad = ""
+    if shared:
+        require(state_err <= (RLFT_DET_ATOL if exact else GRAPH_ATOL),
+                f"{what} ({dtype}): BN buffers {state_err:.3g} apart")
+        grads = []
+        for graphed in (False, True):
+            with eager(graphed):
+                grads.append(backbone_gets_no_gradient(
+                    trainer, batches[0], f"{what} ({dtype}, {'graphed' if graphed else 'eager'})"))
+        no_grad = (f"; with the detection loss off the shared backbone's gradients are"
+                   f" {grads[0][0]} / {grads[1][0]} (eager / graphed; the embedder's conv:"
+                   f" {grads[0][1]:.3g} / {grads[1][1]:.3g})")
     if exact:
         ops = sorted({str(w.message).split(" does not have a deterministic")[0]
                       for w in warned if "deterministic" in str(w.message)})
-        state_err = max(d.max().item() for k, d in diffs.items() if k not in params)
         require(graphed_losses == eager_losses and step_err * lr <= RLFT_DET_ATOL,
-                f"rlft (float32, deterministic): graphed losses {graphed_losses}, eager"
+                f"{what} (float32, deterministic): graphed losses {graphed_losses}, eager"
                 f" {eager_losses}; weights up to {step_err * lr:.3g} apart (at most"
                 f" {RLFT_DET_ATOL}); ops with no deterministic version: {ops}")
-        say(f"rlft train step B={TRAIN_B} float32 under deterministic algorithms: graphed"
-            f" losses {graphed_losses} = eager {eager_losses}; after the window's update"
+        say(f"{what} train step B={TRAIN_B} float32 under deterministic algorithms: graphed"
+            f" losses {graphed_losses} = eager {eager_losses}; after the windows' updates"
             f" the weights up to {step_err * lr:.3g} apart (at most {RLFT_DET_ATOL}), the"
             f" buffers {state_err:.3g}, {apart} weights beyond {RLFT_ATOL}; ops with no"
-            f" deterministic version: {ops}")
+            f" deterministic version: {ops}{no_grad}")
         del trainer
         torch.cuda.empty_cache()
-        return
+        return launches
     if dtype == "float32":
         require(graphed_losses == eager_losses and step_err <= RLFT_STEP_TOL
                 and share <= RLFT_FLIP_SHARE,
-                f"rlft (float32): graphed losses {graphed_losses}, eager {eager_losses};"
+                f"{what} (float32): graphed losses {graphed_losses}, eager {eager_losses};"
                 f" weights up to {step_err:.3g} lr apart (at most {RLFT_STEP_TOL}), {share:.3g}"
                 f" of them beyond {RLFT_ATOL} (at most {RLFT_FLIP_SHARE})")
     else:
         np.testing.assert_allclose(graphed_losses, eager_losses, rtol=GRAPH_RTOL, atol=0)
+    if not timed:
+        say(f"{what} train step B={TRAIN_B} {dtype}: graphed losses {graphed_losses} = eager"
+            f" {eager_losses}; after the windows' updates the state {err:.3g} apart (the"
+            f" buffers {state_err:.3g}), the weights up to {step_err:.3g} lr ({lr:g}), {apart}"
+            f" of them ({share:.3g}) beyond {RLFT_ATOL}{no_grad}; not timed (beside a CLI run)")
+        del trainer
+        torch.cuda.empty_cache()
+        return launches
     walls = defaultdict(list)
     for graphed in (False, True, True, False):
         with eager(graphed):
@@ -2493,20 +2592,44 @@ def rlft_window(port, flags_train, flags_model, toy, seed, per_iter, dtype, warn
             torch.cuda.synchronize()
         walls["graphed" if graphed else "eager"].append(
             (time.perf_counter() - start) * 1e3 / len(batches))
-    say(f"rlft train step B={TRAIN_B} {dtype}: graphed losses {graphed_losses} = eager"
-        f" {eager_losses}; after the window's update the state {err:.3g} apart, the weights"
-        f" up to {step_err:.3g} lr ({lr:g}), {apart} of them ({share:.3g}) beyond"
-        f" {RLFT_ATOL}; wall ms a step, in turns (eager, graphed, graphed, eager): eager"
-        f" {walls['eager']}, graphed {walls['graphed']}")
+    say(f"{what} train step B={TRAIN_B} {dtype}: graphed losses {graphed_losses} = eager"
+        f" {eager_losses}; after the windows' updates the state {err:.3g} apart (the buffers"
+        f" {state_err:.3g}), the weights up to {step_err:.3g} lr ({lr:g}), {apart} of them"
+        f" ({share:.3g}) beyond {RLFT_ATOL}{no_grad}; wall ms a step, in turns (eager,"
+        f" graphed, graphed, eager): eager {walls['eager']}, graphed {walls['graphed']}")
     if dtype == "bfloat16":  # the recipe's dtype: the device's share of each step
         for graphed in (False, True):
             kind = "graphed" if graphed else "eager"
             with eager(graphed):
-                profile_run(f"rlft train step B={TRAIN_B} bf16 ({kind})",
+                profile_run(f"{what} train step B={TRAIN_B} bf16 ({kind})",
                             statistics.median(walls[kind]),
                             lambda: trainer.train_step(batches[0]), unit=("train step", 1))
     del trainer
     torch.cuda.empty_cache()
+    return launches
+
+
+def read_config(path: Path, proc) -> tuple:
+    """The flags of the ``config.json`` that the CLI ``proc`` writes as it
+    starts, once it is there whole."""
+    from jolineedle_tpu_torch import config as tconfig
+
+    while True:
+        try:
+            json.loads(path.read_text())
+            break
+        except (FileNotFoundError, json.JSONDecodeError):
+            require(proc.poll() is None, f"the CLI exited {proc.returncode} before {path}")
+            time.sleep(0.1)
+    return tconfig.config_from_file(path)
+
+
+def rlft_passes(port, flags, toy, seed, per_iter, passes, timed):
+    """Phase 11d's graphed step against the eager one (:func:`graphed_window`)
+    in each of ``passes``."""
+    for dtype, exact in passes:
+        with deterministic() if exact else contextlib.nullcontext() as warned:
+            graphed_window(port, *flags, toy, seed, per_iter, dtype, warned, timed=timed)
 
 
 def rlft_phase(port, seed, sup_run, toy):
@@ -2518,28 +2641,61 @@ def rlft_phase(port, seed, sup_run, toy):
     launches derived from its config: per iteration the rollout's 20
     embedder calls and N_LAYER flash launches in the recompute (replays
     counted), then its final test's (``rl_test_launches`` at the recipe's
-    episode length, detector patches and per-call launches). Then the
-    embedder's kernels at the rollout's TRAIN_B patches against their plain
-    versions and the graphed step against the eager one. Returns the run's
-    launches and the kernel rows."""
+    episode length, detector patches and per-call launches). While the CLI
+    runs (in a process of its own; its ``config.json``, written as it
+    starts, gives the flags), this process runs the UNTIMED_PASSES of 11d's
+    graphed step against the eager one (:func:`rlft_passes`) and phase
+    11e's SHARED_PASSES (:func:`shared_passes`); then, alone on the card, the embedder's
+    kernels at the rollout's TRAIN_B patches against their plain versions
+    and 11d's TIMED_PASSES. Returns the run's launches, the kernel rows and
+    11e's flags with its launches so far."""
     phase_start = time.perf_counter()
     root = ROOT / "build" / "chip_smoke_rlft"
     shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
     env = {**os.environ, "DATASET_DIR": str(toy), "PYTHONUNBUFFERED": "1"}
+    run_dir = root / "out" / "r3_rlft_yolox-s"
     start = time.perf_counter()
-    proc = subprocess.run(["sh", RLFT_SCRIPT, str(root / "out"), str(sup_run), "yolox-s",
-                           str(RLFT_ITERS)], cwd=ROOT, env=env, capture_output=True, text=True,
-                          timeout=900)
+    with open(root / "cli.txt", "w") as out, open(root / "cli_err.txt", "w") as err:
+        proc = subprocess.Popen(["sh", RLFT_SCRIPT, str(root / "out"), str(sup_run), "yolox-s",
+                                 str(RLFT_ITERS)], cwd=ROOT, env=env, stdout=out, stderr=err,
+                                text=True)
+    try:
+        flags = read_config(run_dir / "config.json", proc)
+        train_config, model_config = flags
+        require((model_config.image_processor, model_config.gpt_backbone,
+                 model_config.patch_size, train_config.batch_size, model_config.compute_dtype,
+                 train_config.max_seq_len, train_config.stop_enabled,
+                 train_config.gradient_accumulation, train_config.steps_per_dispatch)
+                == ("yolox-s", "yolox-nano", 64, TRAIN_B, "bfloat16", STEPS, True, RLFT_WINDOW,
+                    RLFT_WINDOW), f"rlft: config {model_config}, {train_config}")
+        steps = model_config.block_size
+        model = port.GPT.from_config(model_config, port.get_actions_info(train_config),
+                                     device=DEVICE).eval()
+        calls = module_kernel_calls(model, model_config.patch_size)
+        del model
+        per_call = {call: per_kernel(c) for call, c in calls.items()}
+        per_iter = {k: steps * n for k, n in per_call["embedder"].items()} | {
+            "flash_attention": N_LAYER}
+        rlft_passes(port, flags, toy, seed, per_iter, UNTIMED_PASSES, timed=False)
+        shared = shared_flags(port, seed, sup_run, run_dir)
+        shared["launches"] = shared_passes(port, seed, toy, shared)
+        beside = time.perf_counter() - start
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     seconds = time.perf_counter() - start
+    stdout, stderr = (root / "cli.txt").read_text(), (root / "cli_err.txt").read_text()
     require(proc.returncode == 0, f"rlft: {RLFT_SCRIPT} exited {proc.returncode}:\n"
-            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    lines = proc.stdout.splitlines()
+            f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    lines = stdout.splitlines()
     require(any(ln.startswith(f"Warm-starting params from {sup_run}/") for ln in lines),
             "rlft: no warm start from the supervised run")
     counts = json.loads([ln for ln in lines if ln.startswith("kernel launches: ")][-1]
                         .split(": ", 1)[1])
     peak = [ln for ln in lines if ln.startswith("peak device memory: ")][-1]
-    run_dir = root / "out" / "r3_rlft_yolox-s"
     files = {p.name for p in run_dir.iterdir()}
     require({"config.json", "checkpoint.pt", "train_state.pt", "metrics.json",
              "best_model.txt"} <= files, f"rlft: run files {sorted(files)}")
@@ -2547,21 +2703,6 @@ def rlft_phase(port, seed, sup_run, toy):
     require(all(math.isfinite(v) for v in metrics.values())
             and {"map", "yolo_map", "stop_used", "stop_misused", "episode_length"}
             <= set(metrics), f"rlft: final validation metrics {metrics}")
-
-    train_config, model_config = port.tconfig.config_from_file(run_dir / "config.json")
-    require((model_config.image_processor, model_config.gpt_backbone, model_config.patch_size,
-             train_config.batch_size, model_config.compute_dtype, train_config.max_seq_len,
-             train_config.stop_enabled, train_config.gradient_accumulation,
-             train_config.steps_per_dispatch)
-            == ("yolox-s", "yolox-nano", 64, TRAIN_B, "bfloat16", STEPS, True, RLFT_WINDOW,
-                RLFT_WINDOW), f"rlft: config {model_config}, {train_config}")
-    steps = model_config.block_size
-    model = port.GPT.from_config(model_config, port.get_actions_info(train_config)).eval()
-    calls = module_kernel_calls(model, model_config.patch_size)
-    del model
-    per_call = {call: per_kernel(c) for call, c in calls.items()}
-    per_iter = {k: steps * n for k, n in per_call["embedder"].items()} | {
-        "flash_attention": N_LAYER}
     n_worst = int(train_config.failure_select_rate * RECIPE_TEST)
     test = rl_test_launches(RECIPE_TEST, n_worst, steps, train_config.max_det_patches, per_call)
     expected = Counter({k: RLFT_ITERS * n for k, n in per_iter.items()}) + Counter(test)
@@ -2570,13 +2711,101 @@ def rlft_phase(port, seed, sup_run, toy):
     say(f"rlft: {RLFT_SCRIPT} <dir> <11c run> yolox-s {RLFT_ITERS} in {seconds:.1f} s"
         f" ({RLFT_ITERS} iterations of B={TRAIN_B}, {steps} patches of"
         f" {model_config.patch_size} px, bf16, accumulation {RLFT_WINDOW}, and the final test"
-        f" of {RECIPE_TEST} images); {peak}; kernel launches {counts} = {RLFT_ITERS} x"
+        f" of {RECIPE_TEST} images; beside it this process ran 11d's and 11e's untimed passes"
+        f" in {beside:.1f} s); {peak}; kernel launches {counts} = {RLFT_ITERS} x"
         f" {per_iter} + the final test's {test}, as derived; final validation: " + ", ".join(
             f"{k} {metrics[k]:.4f}" for k in ("map", "yolo_map", "stop_used", "episode_length")))
     rows = recipe_kernel_rows(port, calls, steps, seed, sizes=(("rollout", "embedder", TRAIN_B),))
-    rlft_graphed_against_eager(port, run_dir, toy, seed, per_iter)
+    rlft_passes(port, flags, toy, seed, per_iter, TIMED_PASSES, timed=True)
     say(f"rlft: the phase took {time.perf_counter() - phase_start:.1f} s")
-    return Counter(counts), rows
+    return Counter(counts), rows, shared
+
+
+def shared_config(port, run_dir):
+    """The flags of ``run_dir``'s ``config.json`` with the recipes' default
+    pairing: the yolox-nano detector's backbone as the embedder (no
+    ``--gpt-backbone``)."""
+    train_config, model_config = port.tconfig.config_from_file(run_dir / "config.json")
+    model_config.image_processor, model_config.gpt_backbone = "yolox-nano", None
+    return train_config, model_config
+
+
+def shared_flags(port, seed, sup_run, rlft_run) -> dict:
+    """Phase 11e's two configurations: 11c's (``sup_run``) and 11d's
+    (``rlft_run``) flags in the shared pairing, the supervised one with no
+    warm-up (its update at the recipe's full learning rate, not at 0) and
+    the fine-tune warm-started from an 8-action state of the pairing
+    (weights and BN statistics from ``seed``) written as a supervised run;
+    the launches of a fine-tune iteration (the rollout's ``max_seq_len``
+    embedder calls, the recompute's one and N_LAYER flash) and the
+    embedder's kernel calls."""
+    root = ROOT / "build" / "chip_smoke_shared"
+    shutil.rmtree(root, ignore_errors=True)
+    sup_train, sup_model = shared_config(port, sup_run)
+    sup_train.lr_warmup_iters = 0
+    torch.manual_seed(seed)
+    model = port.GPT.from_config(sup_model, port.get_actions_info(sup_train),
+                                 device=DEVICE).eval()
+    randomize_bn(model, seed)
+    port.save_model(model, root / "sup", best=True)
+    calls = module_kernel_calls(model, sup_model.patch_size)
+    del model
+    rl_train, rl_model = shared_config(port, rlft_run)
+    rl_train.init_from = str(root / "sup")
+    steps = rl_model.block_size
+    embedder = per_kernel(calls["embedder"])
+    per_iter = {k: (steps + 1) * n for k, n in embedder.items()} | {"flash_attention": N_LAYER}
+    say(f"shared: a fine-tune iteration launches {per_iter}: the rollout's {steps} embedder"
+        f" calls and the recompute's one, {embedder} each, and {N_LAYER} flash")
+    return {"sup": (sup_train, sup_model), "rl": (rl_train, rl_model), "per_iter": per_iter,
+            "calls": calls, "steps": steps}
+
+
+def shared_passes(port, seed, toy, shared) -> Counter:
+    """Phase 11e's checks, the recipes' default shared yolox-nano pairing
+    (the detector's own backbone as the embedder, no ``--gpt-backbone``) on
+    11c's toy set at 11c's and 11d's flags (:func:`shared_flags`):
+    SHARED_SUP_STEPS supervised steps (SHARED_SUP_DET_STEPS under
+    :func:`deterministic`), then one fine-tune window, each graphed (the
+    embedder as a forward-only graph of the shared backbone,
+    ``TrainGraphs.shared_embedder``, captured at its second step: the
+    supervised runs take :func:`graphed_window`'s ``warm`` step, the
+    window's first iteration runs it eagerly) against eager by :func:`graphed_window`
+    with ``shared`` in each of SHARED_PASSES: float32 losses equal, the
+    weights by 11d's rule and the BN buffers within GRAPH_ATOL, under
+    :func:`deterministic` both within RLFT_DET_ATOL; bf16 losses within
+    GRAPH_RTOL; no gradient on the shared backbone from the decision or
+    REINFORCE loss. The launches a step: N_LAYER flash in the supervised
+    step (its train-mode convs are PyTorch's); in a fine-tune iteration the
+    rollout's and the recompute's embedder calls and N_LAYER flash. None is
+    timed: they run beside 11d's CLI (:func:`rlft_phase`). Returns their
+    launches."""
+    launches = Counter()
+    parts = (("shared sup", shared["sup"], {"flash_attention": N_LAYER},
+              (SHARED_SUP_STEPS, SHARED_SUP_DET_STEPS), True,
+              {"embedder": 0, "shared_embedder": 1, "detector": 1, "rollout": 0}),
+             ("shared rlft", shared["rl"], shared["per_iter"], (RLFT_WINDOW, RLFT_WINDOW), False,
+              {"embedder": 0, "shared_embedder": 1, "detector": 1, "rollout": 1}))
+    for what, flags, per_iter, (default_steps, exact_steps), warm, captures in parts:
+        for dtype, exact in SHARED_PASSES:
+            steps = exact_steps if exact else default_steps
+            with deterministic() if exact else contextlib.nullcontext() as warned:
+                launches += graphed_window(port, *flags, toy, seed, per_iter, dtype, warned,
+                                           what=what, steps=steps, captures=captures,
+                                           shared=True, timed=False, warm=warm)
+    return launches
+
+
+def shared_phase(port, seed, shared):
+    """Phase 11e's kernels, alone on the card: the embedder's at the
+    recompute's TRAIN_B x ``max_seq_len`` patches against their plain
+    versions. Returns the launches of :func:`shared_passes` (run by
+    :func:`rlft_phase`) and the kernel rows."""
+    phase_start = time.perf_counter()
+    rows = recipe_kernel_rows(port, shared["calls"], shared["steps"], seed,
+                              sizes=(("recompute", "embedder", TRAIN_B * shared["steps"]),))
+    say(f"shared: the phase took {time.perf_counter() - phase_start:.1f} s")
+    return shared["launches"], rows
 
 
 def run_dir_state(run_dir: Path) -> dict:
@@ -2923,6 +3152,75 @@ def ddp_scaling(seed, toy, root, cards, ranks_mod, mesh):
                 f"{sync}; losses {[round(x, 4) for x in recs[0]['losses']]}")
 
 
+def spd_rank_jobs(toy, root, seed):
+    """Phase 14's jobs for two ranks sharing the card: REINFORCE at
+    ``--steps-per-dispatch`` 1 and SPD_N (float32, untimed)."""
+    return [dict(flags=ddp_flags(toy, root / f"spd{spd}", seed, "reinforce", DDP_B)
+                 + ["--steps-per-dispatch", str(spd)], iters=DDP_ITERS, tf32=False)
+            for spd in (1, SPD_N)]
+
+
+def launch_beside(fn, args, devices, backend):
+    """``mesh.launch(fn, args, devices, backend)`` on a thread of its own,
+    started now; returns a function that waits for it and returns what it
+    returned (or raises what it raised)."""
+    from jolineedle_tpu_torch.parallel import mesh
+
+    box = {}
+
+    def target():
+        try:
+            box["out"] = mesh.launch(fn, args, devices, backend=backend)
+        except BaseException as err:  # handed to the caller at the join
+            box["err"] = err
+
+    thread = threading.Thread(target=target, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    join.alive = thread.is_alive
+    return join
+
+
+def wait_for(path, rank: int, timeout: float = 900.0, every: float = 0.05) -> None:
+    """Write ``<path>.ready<rank>``, then wait until ``path`` exists (a
+    TimeoutError after ``timeout`` seconds)."""
+    Path(f"{path}.ready{rank}").touch()
+    deadline = time.monotonic() + timeout
+    while not Path(path).exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"rank {rank}: {path} did not appear in {timeout} s")
+        time.sleep(every)
+
+
+def held_rank_steps(world, jobs, held, go) -> list:
+    """``ranks.train_rank_steps`` on ``jobs``, then on ``held`` once ``go``
+    exists (:func:`wait_for`), so that this process can hold the ranks'
+    timed jobs until the card is otherwise idle. ``mesh.launch`` pickles it
+    by name: each spawned rank imports this script as its main module."""
+    from jolineedle_tpu_torch.parallel import ranks
+
+    done = ranks.train_rank_steps(world, jobs)
+    wait_for(go, world.rank)
+    return done + ranks.train_rank_steps(world, held)
+
+
+def wait_ready(go: Path, n_ranks: int, alive, timeout: float = 900.0) -> None:
+    """Wait until each of ``n_ranks`` ranks has written ``<go>.ready<rank>``
+    (:func:`wait_for`: it has finished its jobs before the held ones), or
+    raise when the launch (``alive``) ended first or ``timeout`` passed."""
+    deadline = time.monotonic() + timeout
+    while not all(Path(f"{go}.ready{r}").exists() for r in range(n_ranks)):
+        require(alive() and time.monotonic() < deadline,
+                f"the ranks did not reach {go.name} (the launch ended or {timeout} s passed)")
+        time.sleep(0.05)
+
+
 def ddp_phase(port, seed, toy):
     """Data-parallel training (``parallel/mesh.py``): (a) two ranks sharing
     the card over gloo against one rank at the global batch, each mode; (b)
@@ -2930,13 +3228,23 @@ def ddp_phase(port, seed, toy):
     of an NCCL group from torchrun's variables against the same run without
     a group; (d) bf16 step times at W = 2 on the shared card; (e) NCCL
     across every visible card when there are two or more, the train CLI
-    over them and, past two, bf16 step times at W = 1, 2 and all. Returns
-    the launches of the ranks' runs and of (c)'s grouped run."""
-    from jolineedle_tpu_torch.parallel import mesh, ranks as ranks_mod
+    over them and, past two, bf16 step times at W = 1, 2 and all.
+
+    The two ranks of (a) and (d) run in one launch that also takes phase
+    14's two-rank jobs (:func:`spd_rank_jobs`), started first: while the
+    ranks run their untimed jobs, this process runs its own untimed ones
+    (W = 1 of (a), then (c)); then it waits for the ranks to finish those,
+    times W = 1 of (d) while they wait, and lets them run (d) while it
+    waits. So no timed run shares the card. Returns the launches of the
+    ranks' runs and of (c)'s grouped run, and the ranks' results of phase
+    14's jobs."""
+    from jolineedle_tpu_torch.parallel import ranks as ranks_mod
+    from jolineedle_tpu_torch.parallel import mesh
 
     start = time.perf_counter()
     root = toy.parent / "ddp"
     shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
     modes = ("supervised", "reinforce")
     jobs = lambda batch, **kw: [dict(flags=ddp_flags(toy, root, seed, m, batch, **kw), **(
         {"iters": DDP_TIME_ITERS, "time": True} if kw else {"iters": DDP_ITERS}), tf32=False)
@@ -2944,17 +3252,32 @@ def ddp_phase(port, seed, toy):
     bf16 = dict(dtype="bfloat16", augment=False)
     card = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device(DEVICE)
 
-    # (a), (b), (d): the two ranks run every job in one launch
-    one = ranks_mod.train_rank_steps(mesh.single(card), jobs(2 * DDP_B))
-    one_timed = ranks_mod.train_rank_steps(mesh.single(card), jobs(2 * DDP_TIME_B, **bf16))
+    # (a), (b), (d) and phase 14's ranks: the two ranks run every job in one
+    # launch, (d)'s held until this process lets them go
+    go = root / "timed.go"
+    n = len(modes)
     launch_start = time.perf_counter()
-    two = mesh.launch(ranks_mod.train_rank_steps, (jobs(DDP_B) + jobs(DDP_TIME_B, **bf16),),
-                      [card, card], backend="gloo")
-    say(f"ddp: two ranks on cuda:0 over gloo ran {len(modes)} x 2 jobs in"
-        f" {time.perf_counter() - launch_start:.1f} s (process start and kernel loads included)")
+    two = launch_beside(held_rank_steps,
+                        (jobs(DDP_B) + spd_rank_jobs(toy, root, seed), jobs(DDP_TIME_B, **bf16),
+                         str(go)), [card, card], "gloo")
+    try:
+        one = ranks_mod.train_rank_steps(mesh.single(card), jobs(2 * DDP_B))
+        grouped_counts, a = ddp_nccl_check(port, toy, root, seed)
+        beside = time.perf_counter() - launch_start
+        wait_ready(go, 2, two.alive)
+        untimed = time.perf_counter() - launch_start
+        one_timed = ranks_mod.train_rank_steps(mesh.single(card), jobs(2 * DDP_TIME_B, **bf16))
+    finally:
+        go.touch()  # on a failure too: the ranks then finish and exit
+    two = two()
+    say(f"ddp: two ranks on cuda:0 over gloo ran {n} x 2 jobs and phase 14's 2 in"
+        f" {time.perf_counter() - launch_start:.1f} s (process start and kernel loads"
+        f" included); beside them this process ran W=1 of (a) and (c) in {beside:.1f} s, the"
+        f" ranks' untimed jobs ended at {untimed:.1f} s, then W=1 of (d) and the ranks' (d)"
+        f" ran in turns, each alone on the card")
     launches = Counter()
     for rank in two:
-        for job in rank:
+        for job in rank[:n] + rank[n + 2:]:
             for counts in job[counted()]:
                 launches.update(counts)
     for i, mode in enumerate(modes):
@@ -2972,7 +3295,7 @@ def ddp_phase(port, seed, toy):
         require(mode == "supervised" or all(c["dwblock_bn_silu"] > 0 for c in per_it),
                 f"ddp {mode}: conv launches {per_it}")
     for i, mode in enumerate(modes):
-        t = [r[len(modes) + i] for r in two]
+        t = [r[n + 2 + i] for r in two]
         require(t[0]["digests"] == t[1]["digests"], f"ddp {mode} bf16: the ranks disagree")
         step_ms = statistics.median(t[0]["step_ms"] + t[1]["step_ms"])
         one_ms = statistics.median(one_timed[i]["step_ms"])
@@ -2983,7 +3306,41 @@ def ddp_phase(port, seed, toy):
             f" ms for {t[0]['sync_bytes']:,} bytes; {bn:.0f} BN syncs per step; losses"
             f" {[round(x, 4) for x in t[0]['losses']]}")
 
-    # (c): the CLI as the one rank of an NCCL group, against no group
+    launches.update(grouped_counts)
+    say(f"ddp nccl: the train CLI as rank 0 of 1 under torchrun's variables (NCCL): losses {a},"
+        f" equal to the run without a group; launches {grouped_counts} as there")
+
+    # (e): NCCL across every visible card
+    cards = ddp_cards()
+    if cards:
+        w = len(cards)
+        nccl = mesh.launch(ranks_mod.train_rank_steps, (jobs(2 * DDP_B // w),), cards)
+        for i, mode in enumerate(modes):
+            before, after, stat_rel = ddp_compare(f"ddp nccl {mode}", one[i],
+                                                  [r[i] for r in nccl], ranks_mod)
+            say(f"ddp nccl {mode}: W={w} x B={2 * DDP_B // w} on {[str(c) for c in cards]}"
+                f" against W=1: largest relative loss difference {before:.2e} / {after:.2e},"
+                f" BN statistics {stat_rel:.2e}; states bit-equal across ranks")
+        for rank in nccl:
+            for job in rank:
+                for counts in job[counted()]:
+                    launches.update(counts)
+        ddp_cli_check(port, toy, root, seed, cards)
+        if w > 2:
+            ddp_scaling(seed, toy, root, cards, ranks_mod, mesh)
+    else:
+        say("ddp: one card visible, so NCCL across cards (13e) was not run")
+    say(f"ddp: the phase took {time.perf_counter() - start:.1f} s")
+    return launches, [rank[n:n + 2] for rank in two]
+
+
+def ddp_nccl_check(port, toy, root, seed):
+    """(c): the train CLI as the one rank of an NCCL group from torchrun's
+    variables, against the same run without a group: equal losses and
+    launches. Returns the grouped run's launches and losses."""
+    from jolineedle_tpu_torch.parallel import mesh
+
+    card = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device(DEVICE)
     flags = ddp_flags(toy, root / "nccl", seed, "reinforce", DDP_B, dtype="bfloat16",
                       augment=False)
     flags[flags.index("--max-iters") + 1] = str(DDP_NCCL_ITERS)
@@ -3011,33 +3368,7 @@ def ddp_phase(port, seed, toy):
     require(len(a) == DDP_NCCL_ITERS and a == b,
             f"ddp nccl: losses {a} as one rank of an NCCL group, {b} without a group")
     require(grouped_counts == alone_counts, f"ddp nccl: launches {grouped_counts} / {alone_counts}")
-    launches.update(grouped_counts)
-    say(f"ddp nccl: the train CLI as rank 0 of 1 under torchrun's variables (NCCL): losses {a},"
-        f" equal to the run without a group; launches {grouped_counts} as there")
-    del grouped, alone
-
-    # (e): NCCL across every visible card
-    cards = ddp_cards()
-    if cards:
-        w = len(cards)
-        nccl = mesh.launch(ranks_mod.train_rank_steps, (jobs(2 * DDP_B // w),), cards)
-        for i, mode in enumerate(modes):
-            before, after, stat_rel = ddp_compare(f"ddp nccl {mode}", one[i],
-                                                  [r[i] for r in nccl], ranks_mod)
-            say(f"ddp nccl {mode}: W={w} x B={2 * DDP_B // w} on {[str(c) for c in cards]}"
-                f" against W=1: largest relative loss difference {before:.2e} / {after:.2e},"
-                f" BN statistics {stat_rel:.2e}; states bit-equal across ranks")
-        for rank in nccl:
-            for job in rank:
-                for counts in job[counted()]:
-                    launches.update(counts)
-        ddp_cli_check(port, toy, root, seed, cards)
-        if w > 2:
-            ddp_scaling(seed, toy, root, cards, ranks_mod, mesh)
-    else:
-        say("ddp: one card visible, so NCCL across cards (13e) was not run")
-    say(f"ddp: the phase took {time.perf_counter() - start:.1f} s")
-    return launches
+    return grouped_counts, a
 
 
 # --- phase 14: --steps-per-dispatch ----------------------------------------------------------
@@ -3118,11 +3449,13 @@ def spd_step_ms(port, flags, spd):
     return ms
 
 
-def spd_phase(port, seed, toy):
+def spd_phase(port, seed, toy, two=None):
     """``--steps-per-dispatch``: each mode through the train CLI at SPD_N
     and at 1 (float32): equal losses, weights, statistics, REINFORCE
     return window and launches; the CLI's errors; two ranks at SPD_N
-    against 1; bf16 step times. Returns the launches of its runs."""
+    against 1 (``two``: the ranks' results of :func:`spd_rank_jobs`, which
+    phase 13's launch ran; None: launched here); bf16 step times. Returns
+    the launches of its runs."""
     from jolineedle_tpu_torch.parallel import mesh, ranks as ranks_mod
 
     start = time.perf_counter()
@@ -3178,11 +3511,10 @@ def spd_phase(port, seed, toy):
                                 ["--gradient-accumulation", "3"]), "reinforce N=2, accumulation 3")
 
     # two ranks sharing the card over gloo, at SPD_N against 1
-    card = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device(DEVICE)
-    jobs = [dict(flags=ddp_flags(toy, root / f"ddp{spd}", seed, "reinforce", DDP_B)
-                 + ["--steps-per-dispatch", str(spd)], iters=DDP_ITERS, tf32=False)
-            for spd in (1, SPD_N)]
-    two = mesh.launch(ranks_mod.train_rank_steps, (jobs,), [card, card], backend="gloo")
+    if two is None:
+        card = torch.device("cuda", 0) if DEVICE == "cuda" else torch.device(DEVICE)
+        two = mesh.launch(ranks_mod.train_rank_steps, (spd_rank_jobs(toy, root, seed),),
+                          [card, card], backend="gloo")
     require(two[0][0]["digests"] == two[1][0]["digests"], "spd ddp: the N=1 ranks disagree")
     before, after, stat_rel = ddp_compare(f"spd ddp reinforce N={SPD_N}", two[0][0],
                                           [r[1] for r in two], ranks_mod)
@@ -3424,7 +3756,7 @@ GROUPS = {
     "kernels": ("kernels", "reference"),
     "serve": ("serve", "jax_files", "full_prefix", "smoke_conv"),
     "train": ("pool", "train", "supervised", "resume_jax", "eval", "oracle"),
-    "recipe": ("recipe", "rlft"),
+    "recipe": ("recipe", "rlft", "shared"),
     "ddp": ("ddp", "spd"),
     "bench": ("pyramid", "bench"),
 }
@@ -3522,8 +3854,15 @@ def main(argv=None) -> int:
         by_path["recipe"], rows["recipe"], done["recipe_run"] = recipe_phase(port, seed)
 
     def rlft():
-        by_path["rlft"], rlft_rows = rlft_phase(port, seed, *done["recipe_run"])
+        by_path["rlft"], rlft_rows, done["shared"] = rlft_phase(port, seed, *done["recipe_run"])
         rows["recipe"] = rows["recipe"] + rlft_rows
+
+    def shared():
+        by_path["shared"], shared_rows = shared_phase(port, seed, done["shared"])
+        rows["recipe"] = rows["recipe"] + shared_rows
+
+    def ddp():
+        by_path["ddp"], done["spd_ranks"] = ddp_phase(port, seed, toy())
 
     run = {
         "kernels": kernels,
@@ -3543,12 +3882,13 @@ def main(argv=None) -> int:
         "eval": lambda: by_path.update(
             eval=eval_phase(port, seed, model_dir, done["sup_run"])),
         "oracle": lambda: by_path.update(oracle=oracle_phase(port, done["sup_run"][0])),
-        # 11c-11d. the recipes
+        # 11c-11e. the recipes, and their default shared pairing
         "recipe": recipe,
         "rlft": rlft,
+        "shared": shared,
         # 13-14. data parallelism and steps per dispatch
-        "ddp": lambda: by_path.update(ddp=ddp_phase(port, seed, toy())),
-        "spd": lambda: by_path.update(spd=spd_phase(port, seed, toy())),
+        "ddp": ddp,
+        "spd": lambda: by_path.update(spd=spd_phase(port, seed, toy(), done.get("spd_ranks"))),
         # 16-17. the pyramid and the bench
         "pyramid": lambda: pyramid_phase(seed),
         "bench": lambda: by_path.update(bench=bench_phase(port)),

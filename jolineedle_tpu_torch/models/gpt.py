@@ -43,7 +43,7 @@ from .yolox import YOLOPAFPN, YOLOX_VARIANTS, NeedleYOLOX
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 #: The CUDA graphs (``train/graphs.py::TrainGraphs``) that run the embedder
-#: under autograd (train-mode, or eval-mode in REINFORCE's recompute) and the
+#: of a train step (train-mode, or eval-mode in REINFORCE's recompute) and the
 #: train-mode detector inside a train step on the card; None elsewhere.
 TRAIN_GRAPHS: ContextVar = ContextVar("train_graphs", default=None)
 
@@ -247,9 +247,13 @@ class GPT(nn.Module):
 
     def embed_patches(self, patches: torch.Tensor, train: bool = False) -> torch.Tensor:
         """[B, T, P, P, C] -> [B, T, D] via the backbone's FPN top level
-        (``gpt.py:246-267``). With a shared detector (no ``gpt_backbone``)
-        the gradient stops at the FPN, so the decision loss never reaches
-        the detector; a ``gpt_backbone`` embedder is trained by it."""
+        (``gpt.py:246-267``). A ``gpt_backbone`` embedder is trained by the
+        decision loss. With a shared detector (no ``gpt_backbone``) the
+        gradient stops at the FPN (JAX's ``stop_gradient``), so the decision
+        loss never reaches the detector: its backbone runs forward only,
+        outside autograd. In train mode that is batch statistics and one
+        update of the running statistics; in eval mode (REINFORCE's
+        recompute) the fused kernels, as in the rollout."""
         B, T = patches.shape[:2]
         flat = self._to_compute(patches.reshape((B * T,) + patches.shape[2:]))
         autograd = train or torch.is_grad_enabled()
@@ -258,7 +262,11 @@ class GPT(nn.Module):
             top = (graphs.embedder(flat, train) if graphs is not None
                    else self.gpt_backbone_net(flat, train, autograd)[-1])
         else:
-            top = self.yolox.backbone(flat, train, autograd)[-1].detach()
+            # On meta tensors (the FLOP count, utils/flops.py) its PyTorch
+            # convs, which the counter sees as JAX counts them.
+            with torch.no_grad():
+                top = (graphs.shared_embedder(flat, train) if graphs is not None
+                       else self.yolox.backbone(flat, train, flat.is_meta)[-1])
         x = F.conv2d(top, self.embed_fpn_conv.weight.to(top.dtype))
         x = F.relu(x)
         # The JAX module flattens NHWC: permute before flattening, or the

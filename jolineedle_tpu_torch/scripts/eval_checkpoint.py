@@ -17,13 +17,15 @@ metrics. ``--dataset-dir`` overrides the run's recorded dataset location
 
 It writes nothing into ``run_dir``: the trainer's work dir is a temporary
 directory, deleted afterwards. It runs on the GPU unless the caller passes
-``device="cpu"`` to :func:`main`.
+``device="cpu"`` to :func:`main`, or, from the command line, on the device
+that ``JOLINEEDLE_TORCH_DEVICE`` names (as the train CLI does).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import tempfile
 from pathlib import Path
 
@@ -101,4 +103,4 @@ def main(argv=None, device=None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    main(device=os.environ.get("JOLINEEDLE_TORCH_DEVICE") or None)

@@ -6,10 +6,11 @@
 # directory. The toy set is written first, once. Exits non-zero if any
 # sample failed; each sample's output is in <out_dir>/run.txt.
 #
-# Usage: SEED=1 RLFT_SEEDS="2 3 4" sh jolineedle_tpu_torch/scripts/run_rlft_samples.sh \
-#          <sup_run_dir> [out_root] [work_root]
+# Usage: SEED=1 RLFT_SEEDS="2 3 4" [DETECTOR=yolox-s] \
+#          sh jolineedle_tpu_torch/scripts/run_rlft_samples.sh <sup_run_dir> [out_root] [work_root]
 #
-#   sup_run_dir  the supervised yolox-s flagship run to start from (its
+#   DETECTOR     the pairing, as run_rlft_seed.sh takes it (default yolox-s)
+#   sup_run_dir  the supervised flagship run of that pairing to start from (its
 #                checkpoint_best.pt, config.json and metrics.json, e.g. the
 #                sup_run directory a run_rlft_seed.sh call brought back)
 #   out_root     default chiprun_out: sample f<seed> goes to
@@ -22,10 +23,11 @@ set -e
 SUP_RUN=${1:?supervised run dir required}
 SEED=${SEED:-1}
 RLFT_SEEDS=${RLFT_SEEDS:-2 3 4}
+DETECTOR=${DETECTOR:-yolox-s}
 OUT_ROOT=${2:-chiprun_out}
 WORK_ROOT=${3:-build/runs}
 DATASET_DIR=${DATASET_DIR:-build/toyds_big}
-export SEED DATASET_DIR
+export SEED DATASET_DIR DETECTOR
 if [ ! -f "$DATASET_DIR/train.txt" ]; then
   python -m jolineedle_tpu_torch.scripts.make_toyds_big "$DATASET_DIR"
 fi

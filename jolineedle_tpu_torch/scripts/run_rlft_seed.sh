@@ -1,9 +1,9 @@
 #!/bin/sh
 # One seed of the REINFORCE STOP fine-tune on the card, from the port's own
 # supervised flagship, timed and checked: the 1.5k toy set
-# (make_toyds_big), then run_sup_flagship.sh <work>/sup yolox-s under
+# (make_toyds_big), then run_sup_flagship.sh <work>/sup $DETECTOR under
 # time_recipe.py (or the supervised run directory the caller names), then
-# run_rl_finetune_stop.sh <work>/rlft <sup run> yolox-s under time_recipe.py,
+# run_rl_finetune_stop.sh <work>/rlft <sup run> $DETECTOR under time_recipe.py,
 # then eval_checkpoint.py --ckpt best on the fine-tune, which must agree
 # with its final validation within 1e-6, and eval_checkpoint.py --ckpt last
 # on the weights the fine-tune ended its training with (time_recipe.py
@@ -14,15 +14,19 @@
 # the last checkpoint in bands.json, each leg's pace and clocks in
 # pace.json) go to the output directory.
 #
-# Usage: SEED=1 sh jolineedle_tpu_torch/scripts/run_rlft_seed.sh [out_dir] \
-#          [work_dir] [sup_run_dir]
+# Usage: SEED=1 [DETECTOR=yolox-s] sh jolineedle_tpu_torch/scripts/run_rlft_seed.sh \
+#          [out_dir] [work_dir] [sup_run_dir]
 #
+#   DETECTOR     yolox-s (the default: a yolox-s detector and a separate
+#                yolox-nano embedder) or yolox-nano (the recipes' own
+#                default: the shared yolox-nano pairing); it picks the
+#                quality bands too
 #   out_dir      default chiprun_out/rlft_s$SEED
 #   work_dir     default build/runs/rlft_s$SEED (the fine-tune is
-#                <work_dir>/rlft/r3_rlft_yolox-s)
-#   sup_run_dir  a supervised yolox-s flagship run to start from (its
-#                checkpoint_best.pt, and metrics.json for the warm start's
-#                mAP); default: train one at SEED into <work_dir>/sup
+#                <work_dir>/rlft/r3_rlft_$DETECTOR)
+#   sup_run_dir  a supervised flagship run of the same pairing to start
+#                from (its checkpoint_best.pt, and metrics.json for the warm
+#                start's mAP); default: train one at SEED into <work_dir>/sup
 #
 # SEED is the supervised leg's; RLFT_SEED the fine-tune's (default 2, the
 # recipe's own --seed: a later --seed in EXTRA_FLAGS takes its place).
@@ -36,6 +40,7 @@
 set -e
 SEED=${SEED:-1}
 RLFT_SEED=${RLFT_SEED:-2}
+DETECTOR=${DETECTOR:-yolox-s}
 OUT=${1:-chiprun_out/rlft_s$SEED}
 WORK=${2:-build/runs/rlft_s$SEED}
 SUP_RUN=${3:-}
@@ -48,19 +53,19 @@ if [ ! -f "$DATASET_DIR/train.txt" ]; then
 fi
 if [ -z "$SUP_RUN" ]; then
   python -m jolineedle_tpu_torch.scripts.time_recipe --log "$OUT/sup_log.txt" \
-    -- sh jolineedle_tpu_torch/scripts/run_sup_flagship.sh "$WORK/sup" yolox-s \
+    -- sh jolineedle_tpu_torch/scripts/run_sup_flagship.sh "$WORK/sup" "$DETECTOR" \
     | tail -n 1 > "$OUT/sup_time_recipe.json"
-  SUP_RUN="$WORK/sup/r3_sup_yolox-s"
+  SUP_RUN="$WORK/sup/r3_sup_$DETECTOR"
   cp "$SUP_RUN/best_model.txt" "$OUT/sup_best_model.txt"
   mkdir -p "$OUT/sup_run"
   cp "$SUP_RUN/checkpoint_best.pt" "$SUP_RUN/config.json" "$SUP_RUN/metrics.json" \
     "$OUT/sup_run/"
 fi
-RUN="$WORK/rlft/r3_rlft_yolox-s"
+RUN="$WORK/rlft/r3_rlft_$DETECTOR"
 EXTRA_FLAGS="${EXTRA_FLAGS:-} --seed $RLFT_SEED" \
   python -m jolineedle_tpu_torch.scripts.time_recipe --test-every 1000 --log "$OUT/log.txt" \
   --keep-last "$RUN" "$WORK/rlft_last" \
-  -- sh jolineedle_tpu_torch/scripts/run_rl_finetune_stop.sh "$WORK/rlft" "$SUP_RUN" yolox-s \
+  -- sh jolineedle_tpu_torch/scripts/run_rl_finetune_stop.sh "$WORK/rlft" "$SUP_RUN" "$DETECTOR" \
   | tail -n 1 > "$OUT/time_recipe.json"
 cp "$RUN/metrics.json" "$RUN/best_model.txt" "$RUN/config.json" "$OUT/"
 python -m jolineedle_tpu_torch.scripts.dump_metric_curves "$RUN" map yolo_map stop \
@@ -69,9 +74,9 @@ python -m jolineedle_tpu_torch.scripts.eval_checkpoint "$RUN" --ckpt best \
   | tee "$OUT/eval_checkpoint.txt" | tail -n 1
 python -m jolineedle_tpu_torch.scripts.eval_checkpoint "$WORK/rlft_last" --ckpt last \
   | tee "$OUT/eval_checkpoint_last.txt" | tail -n 1
-python - "$OUT" "$SUP_RUN" "$RLFT_SEED" <<'PY'
+python - "$OUT" "$SUP_RUN" "$RLFT_SEED" "$DETECTOR" <<'PY'
 import json, os, sys
-out, sup_run, rlft_seed = sys.argv[1:]
+out, sup_run, rlft_seed, detector = sys.argv[1:]
 final = json.load(open(f"{out}/metrics.json"))
 full_test = lambda name: json.loads([l for l in open(f"{out}/{name}")
                                      if l.startswith("FULL-TEST: ")][-1][len("FULL-TEST: "):])
@@ -80,11 +85,16 @@ keys = ("map", "yolo_map", "stop_used", "stop_misused", "prop_patches_found",
         "episode_length")
 diff = {k: abs(final[k] - check[k]) for k in keys}
 print("eval_checkpoint against the final validation:", json.dumps(diff))
-# The JAX runs' range (0.621-0.623 mAP, yolo_map 0.888-0.891, stop_used
-# 0.500-0.513, misused 0.033-0.04; docs/experiment_log.md:564-603, :972-990)
-# widened by the 0.08 that a run wobbles (:421-460).
-bands = {"map": (0.54, 0.70), "yolo_map": (0.81, 0.97), "stop_used": (0.42, 0.59),
-         "stop_misused": (0.0, 0.12), "episode_length": (0.0, 20.0 - 1e-9)}
+# The JAX runs of the pairing widened by the 0.08 that a run wobbles
+# (docs/experiment_log.md:421-460). yolox-s: 0.621-0.623 mAP, yolo_map
+# 0.888-0.891, stop_used 0.500-0.513, misused 0.033-0.04 (:564-603,
+# :972-990); yolox-nano: the first leg's 10k checkpoint, mAP 0.572, yolo_map
+# 0.719, stop_used 0.507, misused 0.007 (:461-518).
+bands = {"yolox-s": {"map": (0.54, 0.70), "yolo_map": (0.81, 0.97),
+                     "stop_used": (0.42, 0.59), "stop_misused": (0.0, 0.12)},
+         "yolox-nano": {"map": (0.49, 0.65), "yolo_map": (0.64, 0.80),
+                        "stop_used": (0.43, 0.59), "stop_misused": (0.0, 0.09)}}[detector]
+bands["episode_length"] = (0.0, 20.0 - 1e-9)
 try:
     warm = json.load(open(f"{sup_run}/metrics.json"))["map"]
     bands["map_above_warm_start"] = (warm + 1e-9, 1.0)
@@ -96,7 +106,8 @@ for name, row in (("best", final), ("last", last)):
     verdict[name] = {k: {"value": value[k], "band": band, "in": band[0] <= value[k] <= band[1]}
                      for k, band in bands.items()}
     print(f"bands ({name} checkpoint):", json.dumps({k: v["in"] for k, v in verdict[name].items()}))
-json.dump({"rlft_seed": int(rlft_seed), "warm_start_map": warm, **verdict},
+json.dump({"detector": detector, "rlft_seed": int(rlft_seed), "warm_start_map": warm,
+           **verdict},
           open(f"{out}/bands.json", "w"), indent=1)
 # Each leg's pace and the clocks nvidia-smi reported meanwhile (time_recipe).
 legs = {"supervised": "sup_time_recipe.json", "finetune": "time_recipe.json"}

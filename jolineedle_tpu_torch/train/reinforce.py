@@ -10,8 +10,10 @@ actions with one teacher-forced forward of the decoder (prev-action input
 mode: no dropout and running-statistics BatchNorm, as ``decode_step`` runs
 (``gpt.py:385``). Decode and forward are the same function
 (``gpt.py:372-376``), so the gradient is the JAX one. The forward's attention
-is the flash kernel on the card; its convs are PyTorch convs that autograd
-differentiates.
+is the flash kernel on the card; a ``gpt_backbone`` embedder's convs are
+PyTorch convs that autograd differentiates, while the shared detector
+backbone (no ``gpt_backbone``), whose gradient stops at its FPN, embeds
+forward only on the fused conv kernels, as in the rollout.
 
 A train step (``reinforce.py:126-233``): the batch's images, uploaded from
 the host or, under ``--device-data-cache`` (``data/device_pool.py``), taken
@@ -25,9 +27,10 @@ backward; the optimizer (accumulation, clip 1.0, two AdamW groups).
 
 On the card and on one rank the step replays CUDA graphs
 (``train/graphs.py``): the sampled rollout (from its second step of a
-shape), the recompute's ``gpt_backbone`` embedder and the train-mode
-detector, with the step's draws, kernels and gradients as the eager step
-has them (``chip_smoke.py`` phase 11d holds the two).
+shape), the recompute's embedder (a ``gpt_backbone`` one under autograd,
+or the shared backbone forward only) and the train-mode detector, with the
+step's draws, kernels and gradients as the eager step has them
+(``chip_smoke.py`` phases 11d and 11e hold the two).
 """
 
 from __future__ import annotations

@@ -12,14 +12,16 @@ The counterpart of ``jolineedle_tpu/train/supervised.py``:
 - a train step (``supervised.py:103-220``): the photometric augmentation of
   the decision patches, the teacher-forced forward in train mode (dropout
   from the trainer's generator, batch-statistics BatchNorm in the embedder;
-  the attention on the flash kernel, the convs as PyTorch convs under
-  autograd), the class-weighted action cross-entropy; then the augmentation
+  the attention on the flash kernel, the convs as PyTorch convs, under
+  autograd in a ``gpt_backbone`` embedder and forward only in the shared
+  detector backbone, whose gradient stops at its FPN), the class-weighted
+  action cross-entropy; then the augmentation
   of the detector's patches, the train-mode detector and its SimOTA loss;
   then the two-group AdamW with accumulation (no clip). The BatchNorm
   running statistics are updated in place by each forward in turn, so the
   detector's continue from what the decision forward left, as the JAX step
   chains its mutable ``batch_stats``. On the card and on one rank, the
-  train-mode ``gpt_backbone`` embedder and detector run as CUDA graphs
+  train-mode embedder (either kind) and detector run as CUDA graphs
   captured at the first step (``train/graphs.py``, ``Trainer.step_graphs``);
 - the autoregressive eval runs the no-grad KV-cache rollout
   (``train/rollout.py``, the fused conv kernels) from each episode's start

@@ -589,3 +589,60 @@ def test_torchrun_ranks_train_with_equal_losses(toy, tmp_path):
     one = train_main(tconfig.get_args(_train_flags("reinforce", toy, tmp_path / "one", 4,
                                                    ["--max-iters", "2"])), device="cpu")
     np.testing.assert_allclose(losses[0], [float(v) for v in one.loss_history], rtol=1e-4)
+
+
+def test_a_held_job_waits_for_its_go_file(tmp_path, monkeypatch):
+    """``chip_smoke.py``'s hold on two ranks' timed jobs: ``wait_for``
+    writes ``<go>.ready<rank>`` at once and returns only once ``go``
+    exists (with no ``go`` it gives up after its timeout); two spawned
+    ranks running ``held_rank_steps`` (pickled by name, as the script
+    launches them) both reach the go file and finish once it is there."""
+    import importlib.util
+    import threading
+    import time
+
+    monkeypatch.syspath_prepend(str(ROOT))  # the spawned ranks import the script by name
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    monkeypatch.setitem(sys.modules, "chip_smoke", smoke)
+    spec.loader.exec_module(smoke)
+
+    def ready(go, ranks_, thread):
+        deadline = time.monotonic() + 120.0
+        while not all(Path(f"{go}.ready{r}").exists() for r in ranks_):
+            assert thread.is_alive() and time.monotonic() < deadline, box.get("err")
+            time.sleep(0.01)
+
+    go = tmp_path / "timed.go"
+    done = threading.Event()
+    waiter = threading.Thread(target=lambda: (smoke.wait_for(go, 1, timeout=30.0), done.set()),
+                              daemon=True)
+    waiter.start()
+    box = {}
+    ready(go, [1], waiter)
+    time.sleep(0.2)
+    assert not done.is_set()
+    go.touch()
+    waiter.join(timeout=10.0)
+    assert done.is_set()
+    with pytest.raises(TimeoutError):
+        smoke.wait_for(tmp_path / "never.go", 0, timeout=0.2)
+    assert (tmp_path / "never.go.ready0").exists()
+
+    go = tmp_path / "ranks.go"
+
+    def run():
+        try:
+            box["out"] = mesh.launch(smoke.held_rank_steps, ([], [], str(go)), CPU2,
+                                     backend="gloo", rendezvous_dir=tmp_path)
+        except BaseException as err:  # re-raised below
+            box["err"] = err
+
+    launch = threading.Thread(target=run, daemon=True)
+    launch.start()
+    ready(go, [0, 1], launch)
+    assert launch.is_alive()
+    go.touch()
+    launch.join(timeout=120.0)
+    assert "err" not in box, box.get("err")
+    assert box["out"] == [[], []]

@@ -1,9 +1,11 @@
 """The REINFORCE STOP fine-tune's recipe (``run_rl_finetune_stop.sh``):
 eight iterations of the port's train step against the JAX package's.
 
-The recipe's flags at a small size (the yolox-nano detector and a separate
-yolox-nano ``gpt_backbone`` embedder, gpt-nano, patch 64, B = 2, episodes of
-4, 2 detector patches an image, float32, the streamed pixels): STOP,
+The recipe's flags at a small size, in each pairing (the yolox-nano
+detector and a separate yolox-nano ``gpt_backbone`` embedder; and the
+recipe's default, the yolox-nano detector's own backbone as the embedder,
+its gradient stopped at the FPN), gpt-nano, patch 64, B = 2, episodes of
+4, 2 detector patches an image, float32, the streamed pixels: STOP,
 entropy 0.01, accumulation 4 in chunks of 4 (``--steps-per-dispatch``),
 return normalisation, the two learning rates (3e-5 and 2e-5) and the
 warm start (``--init-from``) from an 8-action state, grafted onto the
@@ -80,11 +82,16 @@ LOSS_TERMS = ("loss", "action_loss", "entropy_loss", "yolo_loss", "yolo_iou_loss
               "yolo_conf_loss", "yolo_cls_loss", "yolo_l1_loss")
 
 
-def _argv(toy, work, init_from, stop=True):
+#: The pairings' backbone flags: a separate ``gpt_backbone`` embedder, or the
+#: detector's backbone shared (``run_rl_finetune_stop.sh``'s default).
+PAIRINGS = {"gpt_backbone": "--image-processor yolox-nano --gpt-backbone yolox-nano",
+            "shared": "--image-processor yolox-nano"}
+
+
+def _argv(toy, work, init_from, stop=True, pairing="gpt_backbone"):
     values = {"DATASET_DIR": str(toy), "SUP_RUN": str(init_from), "WORK_DIR": str(work),
               "MAX_ITERS": str(N_ITERS), "DETECTOR": "yolox-nano", "ENTROPY": "0.01",
-              "BACKBONE_FLAGS": "--image-processor yolox-nano --gpt-backbone yolox-nano",
-              "EXTRA_FLAGS": ""}
+              "BACKBONE_FLAGS": PAIRINGS[pairing], "EXTRA_FLAGS": ""}
     drop = () if stop else ("--enable-stop",)
     return _recipe_argv("run_rl_finetune_stop.sh", values, drop=drop) + [
         "--batch-size", str(B), "--max-seq-len", str(T), "--max-det-patches", str(MAX_DET),
@@ -104,11 +111,12 @@ def _jax_trainer(argv, toy):
     return JaxReinforce(cfg, model, None, train, test), cfg
 
 
-def _graft_source(toy, tmp):
+def _graft_source(toy, tmp, pairing):
     """The JAX trainer's 8-action (no STOP) state of the same model at
     another seed, as a ``checkpoint_best.msgpack``: what ``--init-from``
     reads."""
-    argv = _argv(toy, tmp / "src_work", tmp / "none", stop=False) + ["--seed", "5"]
+    argv = _argv(toy, tmp / "src_work", tmp / "none", stop=False, pairing=pairing) + [
+        "--seed", "5"]
     trainer, _ = _jax_trainer(argv, toy)
     assert trainer.state.params["action_head"]["Dense_0"]["kernel"].shape[-1] == 8
     source = tmp / "sup"
@@ -136,15 +144,17 @@ def _chunk_work(cfg, n_train):
     return out
 
 
-def _trajectory(toy, tmp, monkeypatch):
-    """The eight iterations; per iteration the loss terms (JAX, port), the
-    states after it (JAX's, the port's, as flax state dicts) and at a
-    window's end the clipped mean gradient (JAX's, the port's)."""
-    source = _graft_source(toy, tmp)
-    argv = _argv(toy, tmp / "work", source)
+def _trajectory(toy, tmp, monkeypatch, pairing="gpt_backbone"):
+    """The eight iterations in ``pairing``; per iteration the loss terms
+    (JAX, port), the states after it (JAX's, the port's, as flax state
+    dicts) and at a window's end the clipped mean gradient (JAX's, the
+    port's)."""
+    source = _graft_source(toy, tmp, pairing)
+    argv = _argv(toy, tmp / "work", source, pairing=pairing)
     jtrainer, cfg = _jax_trainer(argv, toy)
     assert (cfg.stop_enabled, cfg.gradient_accumulation, cfg.steps_per_dispatch,
             cfg.reward_norm, cfg.entropy_weight) == (True, WINDOW, WINDOW, True, 0.01)
+    assert (jtrainer.model.gpt_backbone is None) == (pairing == "shared")
     jtrainer.load_params_checkpoint(source)
     t_cfg, t_model_cfg = tconfig.args_to_config(tconfig.get_args(argv))
     port = build_trainer(mesh.single("cpu"), t_cfg, t_model_cfg, toy, log=False)
@@ -319,7 +329,18 @@ def _moment_tol(path, value, window_sum):
 
 
 def test_rl_finetune_trajectory_equals_jax(toy, tmp_path, monkeypatch):
-    steps = _trajectory(toy, tmp_path, monkeypatch)
+    _check_trajectory(_trajectory(toy, tmp_path, monkeypatch))
+
+
+def test_rl_finetune_shared_trajectory_equals_jax(toy, tmp_path, monkeypatch):
+    """The recipe's default pairing: the recompute embeds on the shared
+    detector backbone forward only (the fused kernels' plain versions here,
+    JAX's ``stop_gradient`` there), so its backbone is trained by the
+    detector's loss alone, in both packages."""
+    _check_trajectory(_trajectory(toy, tmp_path, monkeypatch, pairing="shared"))
+
+
+def _check_trajectory(steps):
     assert len(steps) == N_ITERS
     for it, (terms, want, got, window) in enumerate(steps, start=1):
         for name, (j, t) in terms.items():

@@ -27,10 +27,22 @@ recipe's flags with gpt-nano widths and one decoder layer, the yolox-nano
   with episode lengths that vary as STOP makes them.
 
 And the port alone: ``time_recipe --keep-last`` keeps the weights a run
-ends its training with, which the final validation overwrites.
+ends its training with, which the final validation overwrites; and the
+card's wrappers of the recipes (``run_flagship_seed.sh``,
+``run_rlft_seed.sh``, ``run_rlft_samples.sh``) take the pairing from
+``DETECTOR``: unset, the yolox-s detector with a yolox-nano
+``gpt_backbone``; ``yolox-nano``, the recipes' default shared pairing. Each
+runs end to end on the CPU (``JOLINEEDLE_TORCH_DEVICE=cpu``, stand-ins for
+``nvidia-smi`` and for ``python``, which logs each train CLI call and
+shortens it to 4 iterations at B = 2) and leaves the pairing's run
+directory and quality bands.
 """
 
+import json
+import os
+import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -427,3 +439,162 @@ def test_time_recipe_keeps_the_last_weights(tmp_path, monkeypatch):
     assert (dest / "checkpoint.pt").read_bytes() == b"last"
     assert (run / "checkpoint.pt").read_bytes() == b"best"
     assert (dest / "config.json").read_text() == "{}"
+
+
+# --- the card's wrappers of the recipes, by pairing ---------------------------------
+ROOT = Path(__file__).resolve().parents[1]
+SCRIPTS = "jolineedle_tpu_torch/scripts"
+# What the stand-in python appends to each train CLI call: B = 2, episodes of
+# 4, --max-iters 4 with a test at the 4th (the fine-tune's one chunk and its
+# test, whose weights --keep-last copies; the supervised loop runs 3
+# iterations and its final validation only).
+SHORT = ["--max-iters", "4", "--test-every", "4", "--batch-size", "2", "--test-samples", "2",
+         "--max-seq-len", "4", "--compute-dtype", "float32"]
+PAIRINGS = {None: ["--image-processor", "yolox-s", "--gpt-backbone", "yolox-nano"],
+            "yolox-nano": ["--image-processor", "yolox-nano"]}
+# The quality bands each pairing's wrapper writes (the JAX runs ± 0.08).
+SUP_BANDS = {None: {"map": [0.28, 0.52], "map_multistart_2": [0.46, 0.68],
+                    "supervised_map": [0.73, 0.97]},
+             "yolox-nano": {"map": [0.35, 0.53], "map_multistart_2": [0.50, 0.67],
+                            "supervised_map": [0.69, 0.86]}}
+RLFT_BANDS = {None: {"map": [0.54, 0.70], "yolo_map": [0.81, 0.97], "stop_used": [0.42, 0.59],
+                     "stop_misused": [0.0, 0.12]},
+              "yolox-nano": {"map": [0.49, 0.65], "yolo_map": [0.64, 0.80],
+                             "stop_used": [0.43, 0.59], "stop_misused": [0.0, 0.09]}}
+
+
+def _stand_ins(tmp):
+    """A bin directory with a ``python`` (this interpreter; each train CLI
+    call logged to ``calls.txt`` and shortened by SHORT) and an
+    ``nvidia-smi`` that answers the wrappers' and ``time_recipe``'s queries."""
+    bin_dir = tmp / "bin"
+    bin_dir.mkdir(exist_ok=True)
+    log = tmp / "calls.txt"
+    (bin_dir / "python").write_text(
+        "#!/bin/sh\n"
+        'if [ "$1 $2" = "-m jolineedle_tpu_torch.main" ]; then\n'
+        f'  echo "$*" >> "{log}"\n'
+        f'  exec "{sys.executable}" "$@" {" ".join(SHORT)}\n'
+        "fi\n"
+        f'exec "{sys.executable}" "$@"\n')
+    (bin_dir / "nvidia-smi").write_text(
+        "#!/bin/sh\n"
+        'case "$1" in\n'
+        '  *name,power.limit*) echo "FAKE GPU, 700.00 W" ;;\n'
+        '  *clocks.max.sm*) echo "1980 MHz" ;;\n'
+        '  *) echo "1000, 100.0, 1980, 2619" ;;\n'
+        "esac\n")
+    for name in ("python", "nvidia-smi"):
+        (bin_dir / name).chmod(0o755)
+    return bin_dir, log
+
+
+def _wrapper(script, args, tmp, detector, extra_env=None):
+    """``sh`` the wrapper from the repo's root with the stand-ins first on the
+    PATH and ``DETECTOR`` set to ``detector`` (unset for None); returns the
+    process and the train CLI calls it made, each as its list of flags."""
+    bin_dir, log = _stand_ins(tmp)
+    env = {k: v for k, v in os.environ.items() if k != "DETECTOR"}
+    env.update({"PATH": f"{bin_dir}{os.pathsep}{env['PATH']}", "PYTHONPATH": str(ROOT),
+                "JOLINEEDLE_TORCH_DEVICE": "cpu", "OMP_NUM_THREADS": "1", "SEED": "1",
+                **(extra_env or {})})
+    if detector is not None:
+        env["DETECTOR"] = detector
+    proc = subprocess.run(["sh", f"{SCRIPTS}/{script}", *map(str, args)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    calls = [line.split()[2:] for line in log.read_text().splitlines()] if log.exists() else []
+    return proc, calls
+
+
+def _pairing_of(flags):
+    i = flags.index("--image-processor")
+    return flags[i:i + 4] if "--gpt-backbone" in flags else flags[i:i + 2]
+
+
+@pytest.fixture(scope="module")
+def flagship_wrappers(toy, tmp_path_factory):
+    """``run_flagship_seed.sh`` once per pairing, each from its own
+    directory: {detector: (process, its CLI calls, out dir, run dir)}."""
+    runs = {}
+    for detector in PAIRINGS:
+        tmp = tmp_path_factory.mktemp(f"wrapper_sup_{detector}")
+        proc, calls = _wrapper("run_flagship_seed.sh", [tmp / "out", tmp / "work"], tmp,
+                               detector, {"DATASET_DIR": str(toy)})
+        runs[detector] = (proc, calls, tmp / "out",
+                          tmp / "work" / f"r3_sup_{detector or 'yolox-s'}")
+    return runs
+
+
+@pytest.mark.parametrize("detector", list(PAIRINGS), ids=["default", "yolox-nano"])
+def test_flagship_wrapper_takes_the_pairing(flagship_wrappers, detector):
+    """The supervised wrapper trains ``run_sup_flagship.sh <work>
+    $DETECTOR`` (default yolox-s): that pairing's flags, its run directory,
+    the eval_checkpoint cross-check, and its bands in ``bands.json``."""
+    proc, calls, out, run_dir = flagship_wrappers[detector]
+    (flags,) = calls
+    assert _pairing_of(flags) == PAIRINGS[detector]
+    assert flags[flags.index("--env-name") + 1] == f"sup_{detector or 'yolox-s'}"
+    assert flags[flags.index("--max-iters") + 1] == "20000"  # the recipe's, before SHORT
+    config = json.loads((run_dir / "config.json").read_text())
+    assert config["model"]["image_processor"] == (detector or "yolox-s")
+    assert config["model"]["gpt_backbone"] == (None if detector else "yolox-nano")
+    assert "eval_checkpoint against the final validation" in proc.stdout
+    bands = json.loads((out / "bands.json").read_text())
+    assert bands["detector"] == (detector or "yolox-s")
+    assert {k: v["band"] for k, v in bands["best"].items()} == SUP_BANDS[detector]
+    assert json.loads((out / "time_recipe.json").read_text())["card"] == "FAKE GPU, 700.00 W"
+
+
+@pytest.mark.parametrize("detector", list(PAIRINGS), ids=["default", "yolox-nano"])
+def test_rlft_wrapper_takes_the_pairing(toy, flagship_wrappers, tmp_path, detector):
+    """The fine-tune wrapper from the same pairing's supervised run:
+    ``run_rl_finetune_stop.sh <work>/rlft <sup run> $DETECTOR`` with that
+    pairing's flags and the fine-tune's seed, its run directory, the best
+    and the last checkpoint's rows in the pairing's bands."""
+    sup_run = flagship_wrappers[detector][3]
+    proc, calls = _wrapper("run_rlft_seed.sh", [tmp_path / "out", tmp_path / "work", sup_run],
+                           tmp_path, detector, {"DATASET_DIR": str(toy), "RLFT_SEED": "3"})
+    (flags,) = calls
+    assert _pairing_of(flags) == PAIRINGS[detector]
+    assert flags[flags.index("--init-from") + 1] == str(sup_run)
+    assert flags[flags.index("--env-name") + 1] == f"rlft_{detector or 'yolox-s'}"
+    assert flags[-2:] == ["--seed", "3"]  # RLFT_SEED, the last --seed
+    name = f"r3_rlft_{detector or 'yolox-s'}"
+    assert (tmp_path / "work" / "rlft" / name / "checkpoint.pt").exists()
+    assert (tmp_path / "work" / "rlft_last" / "checkpoint.pt").exists()
+    bands = json.loads((tmp_path / "out" / "bands.json").read_text())
+    assert bands["detector"] == (detector or "yolox-s") and bands["rlft_seed"] == 3
+    want = dict(RLFT_BANDS[detector], episode_length=[0.0, 20.0 - 1e-9])
+    for which in ("best", "last"):
+        got = {k: v["band"] for k, v in bands[which].items() if k != "map_above_warm_start"}
+        assert got == want, which
+    assert "pace:" in proc.stdout
+
+
+@pytest.mark.parametrize("detector", list(PAIRINGS), ids=["default", "yolox-nano"])
+def test_rlft_samples_pass_the_pairing_on(tmp_path, detector):
+    """``run_rlft_samples.sh`` starts ``run_rlft_seed.sh`` once per seed with
+    ``DETECTOR`` as it was given (yolox-s when unset), from a stand-in
+    repository whose ``run_rlft_seed.sh`` records what it was handed."""
+    scripts = tmp_path / "repo" / SCRIPTS
+    scripts.mkdir(parents=True)
+    (scripts / "run_rlft_samples.sh").write_text(
+        (ROOT / SCRIPTS / "run_rlft_samples.sh").read_text())
+    (scripts / "run_rlft_seed.sh").write_text(
+        'echo "DETECTOR=$DETECTOR RLFT_SEED=$RLFT_SEED $*" > "$1/handed.txt"\n')
+    toy = tmp_path / "toy"
+    toy.mkdir()
+    (toy / "train.txt").write_text("")
+    env = {k: v for k, v in os.environ.items() if k != "DETECTOR"}
+    env.update({"DATASET_DIR": str(toy), "SEED": "1", "RLFT_SEEDS": "2 3"})
+    if detector is not None:
+        env["DETECTOR"] = detector
+    proc = subprocess.run(["sh", f"{SCRIPTS}/run_rlft_samples.sh", "sup", "out", "work"],
+                          cwd=tmp_path / "repo", env=env, capture_output=True, text=True,
+                          timeout=60)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for seed in (2, 3):
+        handed = (tmp_path / "repo" / "out" / f"rlft_s1_f{seed}" / "handed.txt").read_text()
+        assert handed.split() == [f"DETECTOR={detector or 'yolox-s'}", f"RLFT_SEED={seed}",
+                                  f"out/rlft_s1_f{seed}", f"work/rlft_s1_f{seed}", "sup"]

@@ -559,6 +559,24 @@ def test_train_cli_trains_checkpoints_and_resumes_on_cpu(tmp_path):
     assert (resumed.optimizer.updates, resumed.optimizer.mini_step) == (1, 1)
 
 
+def test_step_graphs_off_by_the_environment(monkeypatch):
+    """``JOLINEEDLE_TORCH_STEP_GRAPHS=0`` keeps a trainer on the card and on
+    one rank on the eager route: no graphs, gradients not held."""
+    from types import SimpleNamespace
+
+    from jolineedle_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setenv("JOLINEEDLE_TORCH_STEP_GRAPHS", "0")
+    rng = np.random.default_rng(0)
+    model = _Tiny({k: rng.normal(size=(3, 4)).astype(np.float32)
+                   for k in ("backbone", "head", "h")})
+    opt = Optimizer(model, learning_rate=1e-3, yolo_lr=1e-3, gradient_accumulation=4)
+    trainer = SimpleNamespace(device=torch.device("cuda"), world=SimpleNamespace(grouped=False),
+                              graphs=None, model=model, optimizer=opt)
+    assert Trainer.step_graphs(trainer) is None and trainer.graphs is None
+    assert not opt.grads_held
+
+
 @pytest.mark.parametrize("device,grouped", [("cpu", False), ("cpu", True), ("cuda", True),
                                             ("cuda", False)])
 def test_train_step_graphs_only_on_the_card_on_one_rank(device, grouped):
@@ -586,4 +604,5 @@ def test_train_step_graphs_only_on_the_card_on_one_rank(device, grouped):
         assert isinstance(graphs, TrainGraphs) and graphs.model is model
         assert Trainer.step_graphs(trainer) is graphs and opt.grads_held
         assert all(torch.equal(p.grad, torch.zeros_like(p)) for p in opt.trained_params())
-        assert graphs.captures == {"embedder": 0, "detector": 0, "rollout": 0}
+        assert graphs.captures == {"embedder": 0, "shared_embedder": 0, "detector": 0,
+                                   "rollout": 0}
