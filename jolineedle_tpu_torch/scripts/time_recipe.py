@@ -30,6 +30,12 @@ weights: the final iteration's when ``--max-iters`` is a multiple of
 ``--test-every``) and ``config.json`` are copied into ``DEST``, and the
 process goes on. ``eval_checkpoint.py DEST --ckpt last`` then tests them.
 The recipe scripts ``exec`` the CLI, so the command's process is the CLI's.
+
+The JSON line also holds each test's single-start, multistart-2 and
+detector mAP (``tests``, from the metrics the CLI prints after a test).
+``--stop-after-tests N`` ends the command (SIGTERM) once it has printed N
+tests' metrics: a probe of a recipe's curve that does not run its 20k
+iterations (``sup_probe.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ ITER_LINE = re.compile(r"^iter (\d+): loss ")
 PEAK_LINE = re.compile(r"^peak device memory: ")
 LAUNCH_LINE = "kernel launches: "
 FINAL_VALIDATION_LINE = "Loading best checkpoint for validation"
+TEST_KEYS = ("map", "map_multistart_2", "supervised_map")  # read from each test's metrics
 SAMPLE_EVERY_S = 5.0  # between nvidia-smi samples
 SAMPLED = "memory.used,power.draw,clocks.sm,clocks.mem"  # each sample's fields
 
@@ -119,6 +126,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--keep-last", nargs=2, type=Path, metavar=("RUN_DIR", "DEST"),
                         help="copy RUN_DIR's last checkpoint and config into DEST when the"
                         " final validation starts")
+    parser.add_argument("--stop-after-tests", type=int, default=None, metavar="N",
+                        help="end the command once it has printed N tests' metrics")
     parser.add_argument("command", nargs=argparse.REMAINDER,
                         help="the command, after --")
     args = parser.parse_args(argv)
@@ -133,6 +142,7 @@ def main(argv=None) -> dict:
     sampler = threading.Thread(target=sample_memory, args=(stop, SAMPLE_EVERY_S, samples),
                                daemon=True)
     iters, peak_line, launches, kept = [], None, None, None
+    tests, block = [], None  # the tests' metrics; the lines of the JSON being printed
     start = time.perf_counter()
     sampler.start()
     try:
@@ -153,6 +163,16 @@ def main(argv=None) -> dict:
                 if args.keep_last and line.startswith(FINAL_VALIDATION_LINE):
                     keep_last(proc.pid, *args.keep_last)
                     kept = str(args.keep_last[1])
+                if line == "{\n":
+                    block = []
+                if block is not None:
+                    block.append(line)
+                    if line == "}\n":
+                        metrics, block = json.loads("".join(block)), None
+                        if "map" in metrics:
+                            tests.append({k: metrics.get(k) for k in TEST_KEYS})
+                        if len(tests) == args.stop_after_tests:
+                            proc.terminate()
             rc = proc.wait()
     finally:
         stop.set()
@@ -164,7 +184,7 @@ def main(argv=None) -> dict:
               "peak_memory_used_mib": max((s[0] for s in samples), default=None),
               "max_power_draw_w": max((s[1] for s in samples), default=None),
               **clocks(samples),
-              "trainer_peak": peak_line, "kernel_launches": launches,
+              "trainer_peak": peak_line, "kernel_launches": launches, "tests": tests,
               **({"kept_last": kept} if args.keep_last else {})}
     print(json.dumps(result), flush=True)
     return result

@@ -22,7 +22,12 @@ against the JAX package's (``scripts/run_*.sh``).
 - Each recipe runs end to end on the CPU (``JOLINEEDLE_TORCH_DEVICE=cpu``,
   ``MAX_ITERS`` 2 on a small toy set; the fine-tune from the flagship's
   run) and leaves the run directory's files and the final validation's
-  metrics; ``time_recipe.pace`` reads a run's pace and tests.
+  metrics; ``time_recipe.pace`` reads a run's pace and tests, and
+  ``--stop-after-tests`` ends a run after its first tests; ``sup_probe``
+  runs the flagship recipe's own flags.
+
+The trajectory's helpers (``_jax_trainer`` … ``_check_trajectory``) also
+serve ``test_torch_shared_recipe_parity.py``.
 """
 
 import json
@@ -31,6 +36,7 @@ import re
 import shlex
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -172,11 +178,15 @@ def toy(tmp_path_factory):
     return make_toyds_big.make_toyds_big(root / "toy", n_train=4, n_test=2)
 
 
-def _trajectory_argv(toy: Path, work: Path) -> list:
+def _trajectory_argv(toy: Path, work: Path, n_iters: int = N_ITERS,
+                     drop=("--augment-translate",)) -> list:
+    """The recipe's flags for ``n_iters`` iterations of the shared yolox-nano
+    pairing at a small size: B = 2, float32, dropout 0, warmup 3 updates,
+    without the flags in ``drop``."""
     values = {**FLAGSHIP, "DATASET_DIR": str(toy), "WORK_DIR": str(work),
-              "MAX_ITERS": str(N_ITERS + 1), "BACKBONE_FLAGS": "--image-processor yolox-nano",
+              "MAX_ITERS": str(n_iters + 1), "BACKBONE_FLAGS": "--image-processor yolox-nano",
               "DETECTOR": "yolox-nano"}
-    return _recipe_argv("run_sup_flagship.sh", values, drop=("--augment-translate",)) + [
+    return _recipe_argv("run_sup_flagship.sh", values, drop=drop) + [
         "--batch-size", "2", "--compute-dtype", "float32", "--dropout", "0.0",
         "--lr-warmup-iters", "3", "--devices", "0"]
 
@@ -197,24 +207,41 @@ def _tree(tree, dtype):
         else np.array(x), tree)
 
 
-def _trajectory(toy: Path, work: Path, monkeypatch) -> list:
-    """Twelve iterations of the JAX trainer's step, in float64, and at each
-    one the port's float32 ``train_step`` from the JAX state that the
-    iteration starts from (weights, statistics, AdamW moments and counts,
-    loaded as ``--resume-training`` loads a JAX train state), on the same
-    batch and the same augmented patches. Returns, per iteration, the loss
-    terms (JAX, port) and the states after it (JAX's, the port's), as flax
-    state dicts."""
-    argv = _trajectory_argv(toy, work)
+def _jax_trainer(argv: list, toy: Path) -> JaxSupervised:
+    """The JAX package's supervised trainer of ``argv`` on ``toy``."""
     j_cfg, j_model_cfg = args_to_config(get_args(argv))
-    assert (j_cfg.lr_schedule, j_cfg.lr_decay_iters, j_cfg.translations) == ("cosine", 13, False)
     j_train, j_test = jax_main.build_both_datasets(j_cfg, j_model_cfg, toy)
-    jtrainer = JaxSupervised(j_cfg, JaxGPT.from_config(j_model_cfg, get_actions_info(j_cfg)),
-                             None, j_train, j_test)
-    t_cfg, t_model_cfg = tconfig.args_to_config(tconfig.get_args(argv))
-    port = build_trainer(mesh.single("cpu"), t_cfg, t_model_cfg, toy, log=False)
-    entries = gpt_param_entries(port.model)
+    return JaxSupervised(j_cfg, JaxGPT.from_config(j_model_cfg, get_actions_info(j_cfg)),
+                         None, j_train, j_test)
 
+
+def _port_trainer(argv: list, toy: Path):
+    t_cfg, t_model_cfg = tconfig.args_to_config(tconfig.get_args(argv))
+    return build_trainer(mesh.single("cpu"), t_cfg, t_model_cfg, toy, log=False)
+
+
+def _jax_iterations(jtrainer: JaxSupervised, n_iters: int):
+    """The JAX loop's picks and keys (supervised.py:285-297, :360-368): for
+    each iteration, (it, the batch's indices, its rng seed, the step's key)."""
+    cfg = jtrainer.config
+    order_rng = np.random.default_rng(cfg.seed)
+    key = jax.random.PRNGKey(cfg.seed)
+    index_pool = []
+    for it in range(1, n_iters + 1):
+        while len(index_pool) < cfg.batch_size:
+            index_pool += order_rng.permutation(len(jtrainer.train_dataset)).tolist()
+        indices, index_pool = index_pool[:cfg.batch_size], index_pool[cfg.batch_size:]
+        key, step_key = jax.random.split(key)
+        yield it, indices, cfg.seed + 1 + it, step_key
+
+
+def _replay_augments(monkeypatch):
+    """Replays the JAX step's photometric augmentations into the port's
+    ``train_step``. Returns ``stage(batch, step_key)``, which queues the
+    patches that JAX's step augments from ``step_key`` (decision, then
+    detector); the port's step then checks its raw patches against the
+    batch's and takes JAX's augmented ones. ``stage`` returns the queue,
+    which the port's step empties."""
     replay = []
 
     def replayed(generator, raw):
@@ -224,42 +251,88 @@ def _trajectory(toy: Path, work: Path, monkeypatch) -> list:
 
     monkeypatch.setattr(tsup, "detection_augment", replayed)
     augment = jax.jit(lambda k, x: jax_detection_augment(k, to_unit_float(x)))
-    # The JAX loop's picks and keys (supervised.py:285-297, :360-368).
-    order_rng = np.random.default_rng(j_cfg.seed)
-    key = jax.random.PRNGKey(j_cfg.seed)
-    index_pool, out = [], []
+
+    def stage(batch, step_key):
+        k_aug1, k_aug2, _ = jax.random.split(step_key, 3)
+        replay[:] = [(batch[name], np.asarray(augment(k, batch[name]), np.float32))
+                     for name, k in (("patches", k_aug1), ("patches_yolox", k_aug2))]
+        return replay
+
+    return stage
+
+
+def _host_state(state, dtype) -> dict:
+    """A JAX train state as a flax state dict of numpy leaves in ``dtype``."""
+    return _tree(serialization.to_state_dict(jax.device_get(state)), dtype)
+
+
+def _load_port(port, start: dict, entries) -> None:
+    """Loads a JAX train state's dict (weights, statistics, AdamW moments
+    and counts, step) into the port's trainer, as ``--resume-training``
+    loads a JAX train state."""
+    flax_to_torch({"params": start["params"], "batch_stats": start["batch_stats"]}, port.model)
+    port.optimizer.load_state_dict(flax_optimizer_state(start["opt_state"], port.optimizer,
+                                                        entries))
+    port.step = int(start["step"])
+
+
+def _port_state(port, entries) -> dict:
+    """The port trainer's state as a flax state dict of float64 leaves."""
+    return _tree({**torch_to_flax(port.model.state_dict(), port.model),
+                  "opt_state": optimizer_to_flax(port.optimizer, entries),
+                  "step": port.step}, np.float64)
+
+
+def _f64_step(jtrainer: JaxSupervised) -> None:
+    """Makes the JAX trainer's model and jitted step compute in float64
+    (under ``jax.enable_x64``)."""
+    jtrainer.model = jtrainer.model.clone(compute_dtype=jnp.float64)
+    jtrainer._train_step = jtrainer._build_train_step()
+
+
+def _trajectory(toy: Path, argv: list, monkeypatch, pool: bool = False,
+                jtrainer: JaxSupervised = None) -> list:
+    """The iterations of ``argv`` (``--max-iters`` - 1) of the JAX trainer's
+    step, in float64, and at each one the port's ``train_step`` of ``argv``
+    from the JAX state that the iteration starts from (``_load_port``), on
+    the same batch and the same augmented patches (``_replay_augments``).
+    With ``pool``, the port trains from its device pool on the batch's
+    pixel-free twin (``build_batch``), so its gathers must give JAX's host
+    patches. ``jtrainer``: a JAX trainer of the same schedule and data whose
+    step ``_f64_step`` made float64 (by default one built from ``argv``).
+    Returns, per iteration, the loss terms (JAX, port) and the states after
+    it (JAX's, the port's), as flax state dicts."""
+    port = _port_trainer(argv, toy)
+    if jtrainer is None:
+        jtrainer = _jax_trainer(argv, toy)
+        _f64_step(jtrainer)
+    j_cfg = jtrainer.config
+    n_iters = j_cfg.max_iters - 1
+    assert (j_cfg.lr_schedule, j_cfg.lr_decay_iters) == ("cosine", port.config.lr_decay_iters)
+    assert j_cfg.translations == port.train_dataset.translations
+    if pool:
+        port.pool = port.build_pool()
+        assert port.pool is not None
+    entries = gpt_param_entries(port.model)
+    stage = _replay_augments(monkeypatch)
+    out = []
     with jax.enable_x64():
-        jtrainer.model = jtrainer.model.clone(compute_dtype=jnp.float64)
-        jtrainer._train_step = jtrainer._build_train_step()
         state = jax.tree_util.tree_map(jnp.asarray, _tree(
             jax.device_get(jtrainer.state), np.float64))
-        for it in range(1, N_ITERS + 1):
-            start = _tree(serialization.to_state_dict(jax.device_get(state)), np.float32)
-            flax_to_torch({"params": start["params"], "batch_stats": start["batch_stats"]},
-                          port.model)
-            port.optimizer.load_state_dict(
-                flax_optimizer_state(start["opt_state"], port.optimizer, entries))
-            port.step = int(start["step"])
-
-            while len(index_pool) < j_cfg.batch_size:
-                index_pool += order_rng.permutation(len(j_train)).tolist()
-            indices, index_pool = index_pool[:j_cfg.batch_size], index_pool[j_cfg.batch_size:]
-            batch = build_supervised_batch(j_train, indices, j_cfg,
-                                           np.random.default_rng(j_cfg.seed + 1 + it))
-            key, step_key = jax.random.split(key)
-            k_aug1, k_aug2, _ = jax.random.split(step_key, 3)
-            replay[:] = [(batch[name], np.asarray(augment(k, batch[name]), np.float32))
-                         for name, k in (("patches", k_aug1), ("patches_yolox", k_aug2))]
+        for it, indices, seed, step_key in _jax_iterations(jtrainer, n_iters):
+            _load_port(port, _host_state(state, np.float32), entries)
+            batch = build_supervised_batch(jtrainer.train_dataset, indices, j_cfg,
+                                           np.random.default_rng(seed))
+            port_batch = port.build_batch(indices, seed) if pool else batch
+            assert ("patches" in port_batch) != pool
+            replay = stage(batch, step_key)
             state, j_metrics = jtrainer._train_step(
                 state, jax.tree_util.tree_map(jnp.asarray, batch), step_key, None)
-            t_metrics = port.train_step(batch)
+            t_metrics = port.train_step(port_batch)
             assert not replay
-            want = _tree(serialization.to_state_dict(jax.device_get(state)), np.float64)
-            got = _tree({**torch_to_flax(port.model.state_dict(), port.model),
-                         "opt_state": optimizer_to_flax(port.optimizer, entries),
-                         "step": port.step}, np.float64)
             out.append(({name: (float(j_metrics[name]), float(t_metrics[name]))
-                         for name in LOSS_TERMS}, want, got))
+                         for name in LOSS_TERMS}, _host_state(state, np.float64),
+                        _port_state(port, entries)))
     return out
 
 
@@ -274,8 +347,20 @@ def test_supervised_trajectory_equals_jax(toy, tmp_path, monkeypatch):
     steps of opposite sign; from the first update at the full rate SimOTA
     assigns other anchors and the runs part, by 0.2 % at iteration 4 and
     10-30 % after, also between the float64 port and JAX)."""
-    steps = _trajectory(toy, tmp_path, monkeypatch)
+    argv = _trajectory_argv(toy, tmp_path)
+    assert "--augment-translate" not in argv
+    steps = _trajectory(toy, argv, monkeypatch)
     assert len(steps) == N_ITERS
+    _check_trajectory(steps)
+
+
+def _check_trajectory(steps: list) -> None:
+    """Holds each iteration's loss terms and state (``_trajectory``'s
+    output) against JAX's: the terms within ``LOSS_RTOL``; every weight
+    within ``STEP_TOL`` learning rates of JAX's (the cosine schedule of
+    ``len(steps)`` iterations, warmup 3), all but ``FLIP_SHARE`` of them
+    within ``STATE_ATOL``; the BN statistics and AdamW moments within a
+    share of their leaf's largest value."""
     for it, (terms, want, got) in enumerate(steps, start=1):
         for name, (j, t) in terms.items():
             np.testing.assert_allclose(t, j, rtol=LOSS_RTOL, atol=0,
@@ -283,7 +368,7 @@ def test_supervised_trajectory_equals_jax(toy, tmp_path, monkeypatch):
         assert got["step"] == int(want["step"]) == it
         w, g = _flat(want), _flat(got)
         assert g.keys() == w.keys()
-        lr = lr_at(2e-4, it - 1, "cosine", 3, N_ITERS + 1)
+        lr = lr_at(2e-4, it - 1, "cosine", 3, len(steps) + 1)
         flips = total = 0
         for path, value in w.items():
             value = np.asarray(value, np.float64)
@@ -401,3 +486,63 @@ def test_time_recipe_reads_the_pace_between_tests(mode):
     assert out["s_per_iter"] == pytest.approx(s_iter)
     assert out["s_per_iter_spans"] == n_prints - 1 - len(tests)
     assert out["test_s"] == pytest.approx(tests)
+
+
+@pytest.mark.parametrize("detector", ["yolox-nano", "yolox-s"])
+def test_sup_probe_runs_the_recipes_flags(detector):
+    """``sup_probe.recipe_argv`` reads ``run_sup_flagship.sh``'s flags as the
+    script passes them, for either pairing."""
+    from jolineedle_tpu_torch.scripts import sup_probe
+
+    values = {**FLAGSHIP, "DETECTOR": detector,
+              "BACKBONE_FLAGS": sup_probe.backbone_flags(detector)}
+    want = _recipe_argv("run_sup_flagship.sh", values)
+    assert sup_probe.recipe_argv(values) == want
+    assert ("--gpt-backbone" in want) == (detector != "yolox-nano")
+
+
+def test_time_recipe_stops_after_tests(tmp_path, monkeypatch):
+    """``time_recipe --stop-after-tests 1`` reads each test's metrics from
+    the CLI's printed JSON and ends the command after the first test."""
+    monkeypatch.setattr(time_recipe, "query_gpu", lambda fields: (
+        ["1980 MHz"] if fields == "clocks.max.sm" else ["FAKE GPU, 700.00 W"]))
+    monkeypatch.setattr(time_recipe, "SAMPLE_EVERY_S", 600.0)
+    test = {"map": 0.25, "map_multistart_2": 0.5, "supervised_map": 0.75, "loss": 1.0}
+    script = (f"import json, time\nprint('iter 256: loss 1.0')\n"
+              f"for _ in range(2):\n    print(json.dumps({test!r}, indent=4), flush=True)\n"
+              f"    time.sleep(60)\n")
+    start = time.monotonic()
+    out = time_recipe.main(["--log", str(tmp_path / "log.txt"), "--stop-after-tests", "1",
+                            "--", sys.executable, "-c", script])
+    assert time.monotonic() - start < 30
+    assert out["tests"] == [{k: test[k] for k in time_recipe.TEST_KEYS}]
+    assert out["rc"] != 0 and out["card"] == "FAKE GPU, 700.00 W"
+
+
+def test_export_flax_run_writes_the_runs_weights(flagship_run, tmp_path):
+    """``export_flax_run`` writes a JAX run directory of the flagship run:
+    each msgpack restores (flax's codec) to the ``.pt`` file's weights and
+    statistics, and the config takes the dtype and dataset asked for."""
+    from jolineedle_tpu_torch import checkpoint as ckpt
+    from jolineedle_tpu_torch.config import config_from_file
+    from jolineedle_tpu_torch.env.actions import get_actions_info
+    from jolineedle_tpu_torch.models.gpt import GPT
+    from jolineedle_tpu_torch.scripts import export_flax_run
+
+    _, run_dir = flagship_run
+    out = tmp_path / "jax_run"
+    written = export_flax_run.main([str(run_dir), str(out), "--compute-dtype", "float32",
+                                    "--dataset-dir", "/elsewhere"])
+    assert [p.name for p in written] == [ckpt.FLAX_BEST, ckpt.FLAX_LAST]
+    train_config, model_config = config_from_file(out / "config.json")
+    assert (train_config.compute_dtype, model_config.compute_dtype) == ("float32", "float32")
+    assert train_config.dataset_dir == "/elsewhere"
+    for pt, msgpack in export_flax_run.EXPORTS:
+        model = GPT.from_config(model_config, get_actions_info(train_config), device="cpu")
+        ckpt.load_model_file(model, run_dir / pt)
+        want = _flat(_tree(torch_to_flax(model.state_dict(), model), np.float32))
+        got = _flat(_tree(serialization.msgpack_restore((out / msgpack).read_bytes()),
+                          np.float32))
+        assert got.keys() == want.keys()
+        for path, value in want.items():
+            np.testing.assert_array_equal(got[path], value, err_msg=str(path))
