@@ -8,7 +8,7 @@
 # curves, the cross-check and the final validation against the pairing's
 # quality bands in bands.json) go to the output directory.
 #
-# Usage: SEED=1 [DETECTOR=yolox-s] [INIT_FROM=<run dir>] \
+# Usage: SEED=1 [DETECTOR=yolox-s] [INIT_FROM=<run dir> [STREAM_SEED=K]] \
 #          sh jolineedle_tpu_torch/scripts/run_flagship_seed.sh [out_dir] [work_dir]
 #
 #   DETECTOR  yolox-s (the default: a yolox-s detector and a separate
@@ -18,7 +18,12 @@
 #             recipe's flags plus --init-from, run to their end by
 #             sup_probe.py --tests 0 (run_sup_flagship.sh itself takes no
 #             extra flag), e.g. the JAX package's initial state of the seed
-#             (root main.py with the recipe's flags, --max-iters 1)
+#             (root main.py with the recipe's flags, --max-iters 1); the
+#             weights and train state the run ends its training with are
+#             kept in <work_dir>/last
+#   STREAM_SEED with INIT_FROM only: the seed of the train step's device
+#             draws (dropout, photometric augmentation; stream_seed.py),
+#             SEED still seeding the host batches, tests and evals
 #   out_dir   default chiprun_out/sup_s$SEED
 #   work_dir  default build/runs/sup_s$SEED (the run is
 #             <work_dir>/r3_sup_$DETECTOR)
@@ -39,9 +44,14 @@ nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.t
 if [ ! -f "$DATASET_DIR/train.txt" ]; then
   python -m jolineedle_tpu_torch.scripts.make_toyds_big "$DATASET_DIR"
 fi
+if [ -n "$STREAM_SEED" ] && [ -z "$INIT_FROM" ]; then
+  echo "STREAM_SEED is taken only with INIT_FROM" >&2
+  exit 2
+fi
 if [ -n "$INIT_FROM" ]; then
   python -m jolineedle_tpu_torch.scripts.sup_probe "$OUT" "$WORK" --detector "$DETECTOR" \
-    --seed "$SEED" --tests 0 -- --init-from "$INIT_FROM"
+    --seed "$SEED" --tests 0 ${STREAM_SEED:+--stream-seed "$STREAM_SEED"} \
+    -- --init-from "$INIT_FROM"
 else
   python -m jolineedle_tpu_torch.scripts.time_recipe --log "$OUT/log.txt" \
     -- sh jolineedle_tpu_torch/scripts/run_sup_flagship.sh "$WORK" "$DETECTOR" \

@@ -13,6 +13,13 @@ detector mAP) into ``out_dir``:
     python -m jolineedle_tpu_torch.scripts.sup_probe out/f32_s1 runs/f32_s1 \\
         --detector yolox-nano --seed 1 --tests 3 -- --compute-dtype float32
 
+``--stream-seed K`` runs the CLI through ``stream_seed.py``, which seeds
+the train step's device draws with ``K`` and leaves everything else to
+``--seed``. A run to its end (``--tests 0``) keeps the weights and train
+state that it ends its training with in ``<work_dir>/last`` (``time_recipe
+--keep-last``) before the final validation writes the best weights over
+them.
+
 ``DATASET_DIR`` (default ``build/toyds_big``, written there by
 ``make_toyds_big`` when it holds no training set) is read from the
 environment. Exits non-zero unless the run printed ``--tests`` tests (with
@@ -66,6 +73,8 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=1)
     parser.add_argument("--tests", type=int, default=3,
                         help="sampled tests before the stop (0: run to the end)")
+    parser.add_argument("--stream-seed", type=int, default=None,
+                        help="seed the train step's device draws apart from --seed")
     argv = list(sys.argv[1:] if argv is None else argv)
     cut = argv.index("--") if "--" in argv else len(argv)
     args, extra = parser.parse_args(argv[:cut]), argv[cut + 1:]
@@ -75,9 +84,14 @@ def main(argv=None) -> int:
     values = {"SEED": str(args.seed), "DATASET_DIR": str(dataset),
               "WORK_DIR": str(args.work_dir), "MAX_ITERS": "20000", "SPD": "1",
               "DETECTOR": args.detector, "BACKBONE_FLAGS": backbone_flags(args.detector)}
-    command = [sys.executable, "-m", "jolineedle_tpu_torch.main", *recipe_argv(values), *extra]
+    entry = ENTRY[1:] if args.stream_seed is None else [
+        "-m", "jolineedle_tpu_torch.scripts.stream_seed", "--stream-seed", str(args.stream_seed),
+        "--"]
+    command = [sys.executable, *entry, *recipe_argv(values), *extra]
     args.out_dir.mkdir(parents=True, exist_ok=True)
-    stop = ["--stop-after-tests", str(args.tests)] if args.tests else []
+    stop = (["--stop-after-tests", str(args.tests)] if args.tests else
+            ["--keep-last", str(args.work_dir / f"r3_sup_{args.detector}"),
+             str(args.work_dir / "last")])
     result = time_recipe.main(["--log", str(args.out_dir / "log.txt"), *stop, "--", *command])
     (args.out_dir / "time_recipe.json").write_text(json.dumps(result) + "\n")
     if not args.tests:

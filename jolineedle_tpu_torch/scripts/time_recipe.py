@@ -27,8 +27,10 @@ writes those weights over the last one (``checkpoint.pt``), as the JAX
 package does; so when the CLI prints the line that starts it, the command's
 process is paused, ``RUN_DIR``'s ``checkpoint.pt`` (the last test's
 weights: the final iteration's when ``--max-iters`` is a multiple of
-``--test-every``) and ``config.json`` are copied into ``DEST``, and the
-process goes on. ``eval_checkpoint.py DEST --ckpt last`` then tests them.
+``--test-every``), ``config.json`` and, where the run has one,
+``train_state.pt`` (the optimizer, step and generator saved with those
+weights) are copied into ``DEST``, and the process goes on.
+``eval_checkpoint.py DEST --ckpt last`` then tests them.
 The recipe scripts ``exec`` the CLI, so the command's process is the CLI's.
 
 The JSON line also holds each test's single-start, multistart-2 and
@@ -106,12 +108,13 @@ def clocks(samples: list) -> dict:
 
 
 def keep_last(pid: int, run_dir: Path, dest: Path) -> None:
-    """Copy ``run_dir``'s last checkpoint and config into ``dest`` while the
-    process ``pid`` is stopped."""
+    """Copy ``run_dir``'s last checkpoint, config and train state into
+    ``dest`` while the process ``pid`` is stopped."""
     os.kill(pid, signal.SIGSTOP)
     try:
         dest.mkdir(parents=True, exist_ok=True)
-        for name in ("checkpoint.pt", "config.json"):
+        state = ["train_state.pt"] if (run_dir / "train_state.pt").is_file() else []
+        for name in ("checkpoint.pt", "config.json", *state):
             shutil.copy2(run_dir / name, dest / name)
     finally:
         os.kill(pid, signal.SIGCONT)

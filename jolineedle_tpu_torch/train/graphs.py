@@ -61,6 +61,22 @@ step's order (each graph in a memory pool of its own, so neither's replay
 touches the other's static tensors). The graphs run on the card and on one
 rank only (``Trainer.step_graphs``); on the CPU, over several ranks, in
 the eval rollouts, ``infer`` and the bench there are none.
+
+PyTorch warns once a process that "The AccumulateGrad node's stream does
+not match the stream of the node that produced the incoming gradient". It
+comes from inside a capture, not from a step's backward: at the first
+graphed step, ``make_graphed_callables`` differentiates the captured stack
+(the detector's, in the shared pairing) in its warm-up and its capture, on
+side streams of its own, one for each; the step's own backward calls, then
+and at the steps after, raise none (``scripts/step_probe.py --graphed-warnings`` on
+the card records every warning of three graphed steps, per backward call).
+The streams are ``make_graphed_callables``' own, which it takes no
+argument for, so nothing here can make them agree; and a mismatch costs a
+synchronisation, not a value: the graphed step computes what the eager
+one does, bit for bit (PERF.md: a shared nano supervised run eager
+against graphed, every printed loss equal through 3,328 iterations;
+``chip_smoke.py`` phase 11e's losses, BatchNorm buffers and deterministic
+passes 0 apart).
 """
 
 from __future__ import annotations

@@ -13,7 +13,9 @@ narrower than the recipe:
 - (d) two iterations at the recipe's B = 16, the second from the port's
   own state;
 - (e) a fresh model of the shared pairing at the recipe's widths against
-  flax's draw, leaf by leaf.
+  flax's draw, leaf by leaf;
+- (f) the gradients and statistics of one step (``test_torch_trained_state.py``'s
+  witness of trained states) from the JAX initial state.
 
 The trajectories reuse ``test_torch_recipes``' helpers; (e) reuses
 ``test_torch_init``'s.
@@ -23,6 +25,7 @@ import copy
 from pathlib import Path
 
 import numpy as np
+import optax
 import pytest
 import torch
 from scipy import stats
@@ -89,7 +92,8 @@ def jax_drops(toy, tmp_path_factory):
     """``get(B)``: the JAX trainer of the recipe's flags at dropout 0.1 and
     batch size B for three iterations (built once per B), its step made
     float64 and traced with each ``nn.Dropout``'s mask sent to the host,
-    and ``masks``: after a step, each site's module path -> its mask. The
+    ``masks``: after a step, each site's module path -> its mask, and
+    ``grads``: the list each step appends its gradients to. The
     interceptor draws the mask as flax does (one ``make_rng`` per call, on
     a tensor of ones) and applies it as flax does (``lax.select(mask, x /
     keep, 0)``)."""
@@ -106,7 +110,30 @@ def jax_drops(toy, tmp_path_factory):
 def _jax_drop(toy: Path, work: Path, batch_size: int):
     jtrainer = _jax_trainer(_dropout_argv(toy, work, 3, batch_size), toy)
     assert jtrainer.model.dropout == DROPOUT
+    grads = _capture_grads(jtrainer)
     _f64_step(jtrainer)
+    return jtrainer, _intercept_dropout(jtrainer), grads
+
+
+def _capture_grads(jtrainer) -> list:
+    """Makes the JAX trainer's optimizer send each step's gradients to the
+    host before it updates; returns the list they are appended to. The
+    steps built after the call send them."""
+    grads, tx = [], jtrainer.tx
+
+    def update(updates, state, params=None, **extra):
+        jax.debug.callback(lambda g: grads.append(jax.tree_util.tree_map(np.asarray, g)),
+                           updates)
+        return tx.update(updates, state, params, **extra)
+
+    jtrainer.tx = optax.GradientTransformationExtraArgs(tx.init, update)
+    return grads
+
+
+def _intercept_dropout(jtrainer) -> dict:
+    """Wraps the JAX trainer's ``_train_step`` so that each step sends
+    every ``nn.Dropout``'s mask to the host; returns the dict (module path
+    -> mask) that each step fills (``jax_drops``)."""
     masks = {}
 
     def interceptor(next_fun, args, kwargs, context):
@@ -130,7 +157,7 @@ def _jax_drop(toy: Path, work: Path, batch_size: int):
         return out
 
     jtrainer._train_step = traced
-    return jtrainer, masks
+    return masks
 
 
 def _replay_dropout(monkeypatch, masks: dict, n_layer: int) -> dict:
@@ -210,7 +237,7 @@ def test_dropout_trajectory_equals_jax(toy, tmp_path, monkeypatch, jax_drops):
     ``embed_fpn_conv`` output 1.8e-6 from ReLU's kink (of 5.1 at most, a
     sum of 256 terms), whose flip moves that kernel's first moment by 4.1 %
     of its largest value, past the 3 %."""
-    jtrainer, masks = jax_drops(SMALL_B)
+    jtrainer, masks, _ = jax_drops(SMALL_B)
     shares = _replay_dropout(monkeypatch, masks, jtrainer.model.n_layer)
     steps = _trajectory(toy, _dropout_argv(toy, tmp_path, 3, SMALL_B), monkeypatch,
                         jtrainer=jtrainer, n_iters=2)
@@ -234,13 +261,36 @@ def test_second_iteration_from_the_ports_own_state(toy, tmp_path, monkeypatch, j
     statistics within 0.1 %) hold with room. At B = 4 in tier-1; at the
     recipe's B = 16 (JAX's float64 step there takes about a minute on the
     CPU) marked ``slow``."""
-    jtrainer, masks = jax_drops(batch_size)
+    jtrainer, masks, _ = jax_drops(batch_size)
     shares = _replay_dropout(monkeypatch, masks, jtrainer.model.n_layer)
     steps = _trajectory(toy, _dropout_argv(toy, tmp_path, 3, batch_size), monkeypatch,
                         jtrainer=jtrainer, reload={1}, n_iters=2)
     assert len(steps) == 2 and not masks
     _check_keep_shares(shares, 2)
     _check_trajectory(steps)
+
+
+def test_step_from_the_jax_initial_state(toy, tmp_path, monkeypatch, jax_drops):
+    """(f) ``test_torch_trained_state.py``'s witness of the step from a
+    trained state, run from the JAX trainer's initial state of seed 1
+    (written as a port run directory and read back through
+    ``export_flax_run``, as a trained run is) at B = 4 in float32, on two
+    batches with JAX's masks and patches replayed: the port's loss terms,
+    per-leaf gradients before AdamW and BatchNorm statistics after the step
+    no further from JAX's float64 step than twice JAX float32's distance,
+    plus the atols of ``step_probe`` (``within``)."""
+    from test_torch_trained_state import check, initial_run, injected_steps, steps_from
+
+    jtrainer, masks, grads = jax_drops(SMALL_B)
+    run_dir = initial_run(jtrainer, _dropout_argv(toy, tmp_path / "run", 3, SMALL_B), toy)
+    steps = {**injected_steps(jtrainer, ("float32",)), "float64": jtrainer._train_step}
+    grads.clear()
+    runs = steps_from(run_dir, "best", toy, tmp_path, monkeypatch,
+                      (jtrainer, steps, grads, masks),
+                      lambda work, dtype: _dropout_argv(toy, work, 3, SMALL_B) + [
+                          "--compute-dtype", dtype], ("float32",), n_batches=2)
+    assert len(runs["float64"]) == 2 and runs["inputs"] is not None
+    check(runs, "float32")
 
 
 def _host_argv(toy: Path, work: Path, seed: int) -> list:
@@ -402,7 +452,7 @@ def shared_inits(toy, tmp_path_factory, jax_drops):
     ``--gpt-backbone``, ``--max-seq-len`` 8): the JAX trainer's initial
     weights and statistics (flax's ``GPT.init_all`` from PRNGKey 1, the
     seed) and the port's ``GPT`` of the same flags from torch seed 0."""
-    jtrainer, _ = jax_drops(SMALL_B)
+    jtrainer, *_ = jax_drops(SMALL_B)
     argv = _dropout_argv(toy, tmp_path_factory.mktemp("init"), 3, SMALL_B)
     assert "--gpt-backbone" not in argv and argv[argv.index("--max-seq-len") + 1] == "8"
     variables = jax.device_get({"params": jtrainer.state.params,
