@@ -190,7 +190,13 @@ ends with its launches by path. Each phase prints its seconds. The phases:
    and the recompute's one (252 ``dwblock_bn_silu``, 21
    ``conv3x3_bn_silu``) and 3 flash. These passes time nothing and run
    beside 11d's CLI. Then the embedder's kernels at the
-   recompute's 16 x 20 patches against their plain versions;
+   recompute's 16 x 20 patches against their plain versions. Then the key
+   route (JAX's own random numbers): split, fold_in, bits, uniform,
+   randint and bernoulli on the card bit-equal to the CPU's in this
+   process, normal within 2 ulp, the augmentation of 16 x 8 patches within
+   1e-6; and 2 supervised steps of the pairing on JAX's keys of ``--seed``,
+   the TPU-precision option off and on, their losses printed (3 flash a
+   step);
 12. eval and report: a toy test set of 10 images of 3 x 3 patches (1344
    px), so that ``--failure-select-rate`` 0.1 picks one worst image.
    ``--measure-flops`` through the train CLI on the card and on the CPU
@@ -432,6 +438,13 @@ RLFT_DET_ATOL = 1e-7
 # (the graphs replayed across updates: every weight must stay equal); its
 # fine-tune runs one window of RLFT_WINDOW.
 SHARED_SUP_STEPS, SHARED_SUP_DET_STEPS = 1, 8
+# The key route (JAX's own random numbers, ``utils/jax_random.py``) on the
+# card against the CPU in this process: every draw bit-equal but normal's,
+# within KEY_NORMAL_ULPS (libm's log1p and sqrt on either side); the
+# photometric augmentation of the recipe's B x 8 decision patches within
+# KEY_AUG_ATOL. Then KEY_STEPS supervised steps of the shared pairing on the
+# key route, with the TPU-precision option off and on.
+KEY_NORMAL_ULPS, KEY_AUG_ATOL, KEY_STEPS = 2, 1e-6, 2
 # The plain 3x3 conv: the smoke script's default and the nano stem.
 PLAIN_CONV_SHAPES = [(8, 56, 56, 16, 32), (N_PATCHES, PATCH // 2, PATCH // 2, 12, 16)]
 # The dense 3x3 convs of a wider variant, held and timed beside the path.
@@ -2689,6 +2702,7 @@ def rlft_phase(port, seed, sup_run, toy):
         rlft_passes(port, flags, toy, seed, per_iter, UNTIMED_PASSES, timed=False)
         shared = shared_flags(port, seed, sup_run, run_dir)
         shared["launches"] = shared_passes(port, seed, toy, shared)
+        shared["toy"] = toy
         beside = time.perf_counter() - start
         proc.wait(timeout=900)
     finally:
@@ -2805,16 +2819,96 @@ def shared_passes(port, seed, toy, shared) -> Counter:
     return launches
 
 
+def key_route_draws(seed):
+    """The key route's draws on the card against the same draws on the CPU:
+    split, fold_in, bits, uniform, randint and bernoulli bit-equal, normal
+    within KEY_NORMAL_ULPS, the augmentation within KEY_AUG_ATOL."""
+    from jolineedle_tpu_torch.ops.augment import detection_augment
+    from jolineedle_tpu_torch.utils import jax_random as jr
+
+    start = time.perf_counter()
+    worst = 0
+    for s in (seed, seed + 1, 123456789):
+        cpu, card = jr.to_device(jr.prng_key(s), "cpu"), jr.to_device(jr.prng_key(s), DEVICE)
+        draws = {"split": lambda k: jr.split(k, 5), "fold_in": lambda k: jr.fold_in(k, 7)}
+        for shape in ((), (7,), (4, 5), (TRAIN_B * 8, 64, 64, 3)):
+            draws |= {f"{name} {shape}": (lambda k, f=f, shape=shape: f(k, shape)) for name, f in (
+                ("bits", jr.random_bits), ("uniform", lambda k, sh: jr.uniform(k, sh, 0.1, 2.0)),
+                ("randint", lambda k, sh: jr.randint(k, sh, 0, 24)),
+                ("bernoulli", lambda k, sh: jr.bernoulli(k, 0.9, sh)))}
+            a, b = jr.normal(cpu, shape), jr.normal(card, shape).cpu()
+            if a.numel():
+                worst = max(worst, int((a.view(torch.int32).long() - b.view(torch.int32).long())
+                                       .abs().max()))
+        for name, draw in draws.items():
+            require(torch.equal(draw(cpu), draw(card).cpu()),
+                    f"key route: the card's {name} draw of seed {s} differs from the CPU's")
+    require(worst <= KEY_NORMAL_ULPS, f"key route: the card's normal is {worst} ulp from the CPU's")
+    images = torch.randint(0, 256, (TRAIN_B, 8, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(seed))
+    cpu = detection_augment(jr.prng_key(seed), images)
+    err = float((detection_augment(jr.prng_key(seed), images.to(DEVICE)).cpu() - cpu).abs().max())
+    require(err <= KEY_AUG_ATOL, f"key route: the card's augmentation is {err} from the CPU's")
+    say(f"key route: split, fold_in, bits, uniform, randint and bernoulli on the card equal the"
+        f" CPU's bit for bit, normal within {worst} ulp (up to {TRAIN_B * 8 * 64 * 64 * 3}"
+        f" draws), the augmentation of {TRAIN_B} x 8 patches within {err:.3g};"
+        f" {time.perf_counter() - start:.1f} s")
+
+
+def key_route_steps(port, seed, shared) -> Counter:
+    """KEY_STEPS supervised steps of the shared pairing (11e's flags) on the
+    key route from one state on the same batches, with the TPU-precision
+    option off and on: the same step keys, finite losses that the option
+    moves, N_LAYER flash launches a step. Returns the launches."""
+    from jolineedle_tpu_torch.parallel import mesh
+    from jolineedle_tpu_torch.utils.jax_random import KeyStream
+
+    start = time.perf_counter()
+    train_config, model_config = copy.deepcopy(shared["sup"][0]), shared["sup"][1]
+    train_config.work_dir = str(shared["toy"].parent / "key_route")
+    trainer = port.build_trainer(mesh.single(torch.device(DEVICE)), train_config, model_config,
+                                 shared["toy"], log=False)
+    trainer.pool = trainer.train_pool()
+    rng = np.random.default_rng(seed)
+    batches = [trainer.build_batch(rng.integers(0, len(trainer.train_dataset), TRAIN_B).tolist(),
+                                   seed + i) for i in range(KEY_STEPS)]
+    state = copy.deepcopy(trainer.model.state_dict())
+    opt = copy.deepcopy(trainer.optimizer.state_dict())
+    launches, losses = Counter(), {}
+    for option in (False, True):
+        trainer.model.load_state_dict(state)
+        trainer.optimizer.load_state_dict(copy.deepcopy(opt))
+        trainer.step, trainer.key_stream = 0, KeyStream(seed)
+        trainer.model.tpu_default_precision = option
+        reset_launches(port)
+        losses[option] = [float(trainer.train_step(b)["loss"]) for b in batches]
+        torch.cuda.synchronize()
+        launches.update(check_launches(port, f"key route: {KEY_STEPS} steps (TPU precision"
+                                       f" {option})", {"flash_attention": KEY_STEPS * N_LAYER}))
+    trainer.model.tpu_default_precision = False
+    require(all(math.isfinite(v) for v in losses[False] + losses[True])
+            and losses[False] != losses[True], f"key route: losses {losses}")
+    say(f"key route: {KEY_STEPS} supervised steps of the shared pairing"
+        f" ({model_config.compute_dtype}, B={TRAIN_B}) on JAX's keys of seed {seed}: losses"
+        f" {losses[False]}, with the TPU-precision option {losses[True]};"
+        f" {time.perf_counter() - start:.1f} s")
+    return launches
+
+
 def shared_phase(port, seed, shared):
     """Phase 11e's kernels, alone on the card: the embedder's at the
     recompute's TRAIN_B x ``max_seq_len`` patches against their plain
-    versions. Returns the launches of :func:`shared_passes` (run by
-    :func:`rlft_phase`) and the kernel rows."""
+    versions; then the key route (:func:`key_route_draws`,
+    :func:`key_route_steps`). Returns the launches of :func:`shared_passes`
+    (run by :func:`rlft_phase`) and the key route's steps, and the kernel
+    rows."""
     phase_start = time.perf_counter()
     rows = recipe_kernel_rows(port, shared["calls"], shared["steps"], seed,
                               sizes=(("recompute", "embedder", TRAIN_B * shared["steps"]),))
+    key_route_draws(seed)
+    launches = shared["launches"] + key_route_steps(port, seed, shared)
     say(f"shared: the phase took {time.perf_counter() - phase_start:.1f} s")
-    return shared["launches"], rows
+    return launches, rows
 
 
 def run_dir_state(run_dir: Path) -> dict:

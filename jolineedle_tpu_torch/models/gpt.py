@@ -16,8 +16,12 @@ JAX package are ``nn.Linear`` weights ``[out, in]`` here (see
 
 The teacher-forced ``forward`` attends through ``ops.attention.
 causal_attention``: the flash kernel on the card. ``train=True`` turns on
-dropout (drawn from an explicit ``torch.Generator``, flax's keep-and-rescale)
-and batch-statistics BatchNorm in the embedder. The YOLOX convs take the
+dropout (flax's keep-and-rescale, drawn from an explicit ``torch.Generator``
+or, on the key route, from flax's own key for each site: ``utils/
+jax_random.py``) and batch-statistics BatchNorm in the embedder. A probe
+option, ``GPT.tpu_default_precision``, computes the train step's float32
+Dense products as XLA does at a TPU's default precision
+(:class:`TpuDefaultDot`). The YOLOX convs take the
 fused eval kernels only when neither ``train`` nor autograd needs them
 (``models/yolox.py``): the no-grad rollout runs the kernels, a forward that
 is differentiated runs PyTorch convs.
@@ -35,7 +39,9 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.attention import NEG_INF, causal_attention
+from ..parallel import mesh
 from ..parallel.mesh import draw
+from ..utils import jax_random as jr
 from .init import init_like_flax
 from .positional import positional_encoding_1d, positional_encoding_2d
 from .yolox import YOLOPAFPN, YOLOX_VARIANTS, NeedleYOLOX
@@ -52,6 +58,35 @@ def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     """A Dense layer computed in ``dtype`` (flax ``nn.Dense(dtype=...)``)."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _bf16_values(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to bfloat16 (to nearest, ties to even)."""
+    return x.to(torch.bfloat16).float()
+
+
+class TpuDefaultDot(torch.autograd.Function):
+    """``x @ weight.T`` (an ``nn.Linear`` weight, no bias) as XLA computes a
+    float32 dot at a TPU's default precision: one pass on bfloat16-rounded
+    operands with float32 accumulation, in the forward and in both
+    transposed products of the backward, whose cotangent is rounded too.
+    The products of bfloat16 values are exact in float32 (on the card with
+    TF32 matmuls off, PyTorch's default)."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        xb, wb = _bf16_values(x), _bf16_values(weight)
+        ctx.save_for_backward(xb, wb)
+        return F.linear(xb, wb)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xb, wb = ctx.saved_tensors
+        gb = _bf16_values(grad)
+        dx = gb @ wb if ctx.needs_input_grad[0] else None
+        dw = (gb.reshape(-1, gb.shape[-1]).t() @ xb.reshape(-1, xb.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return dx, dw
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -140,6 +175,12 @@ class GPT(nn.Module):
     """
 
     token_offset = 1  # class-conditional token
+    #: The probe option: the train step's float32 Dense products
+    #: (``embed_fpn_dense``, ``project_concat``, the action head; the bf16
+    #: recipe's only float32 products) at a TPU's default precision
+    #: (:class:`TpuDefaultDot`), as the JAX package's float32 Dense layers
+    #: ran on a TPU. Evals and rollouts stay in float32.
+    tpu_default_precision = False
 
     def __init__(
         self,
@@ -272,7 +313,7 @@ class GPT(nn.Module):
         # The JAX module flattens NHWC: permute before flattening, or the
         # bridged embed_fpn_dense weight would not match.
         x = x.permute(0, 2, 3, 1).reshape(B * T, -1).float()
-        return self.embed_fpn_dense(x).reshape(B, T, self.n_embd)
+        return self._f32_dense(self.embed_fpn_dense, x, train).reshape(B, T, self.n_embd)
 
     def embed_token_positions(self, seq_positions: torch.Tensor) -> torch.Tensor:
         if self.decoder_pos_encoding:
@@ -287,17 +328,66 @@ class GPT(nn.Module):
         if self.use_pos_emb:
             embeddings.append(positional_encoding_2d(positions, self.n_embd))
         if self.concat_emb:
-            return self.project_concat(torch.cat(embeddings, dim=-1))
+            return self._f32_dense(self.project_concat, torch.cat(embeddings, dim=-1), train)
         return torch.stack(embeddings, dim=2).mean(dim=2)
 
+    def _f32_dense(self, layer: nn.Linear, x: torch.Tensor, train: bool) -> torch.Tensor:
+        """A float32 Dense layer; in train mode under
+        ``tpu_default_precision`` at a TPU's default precision."""
+        if not (train and self.tpu_default_precision):
+            return layer(x)
+        y = TpuDefaultDot.apply(x, layer.weight)
+        return y if layer.bias is None else y + layer.bias
+
     # --- full (teacher-forced) forward ---------------------------------------
-    def _dropout(self, train: bool, generator: Optional[torch.Generator]):
+    def dropout_sites(self) -> list:
+        """flax's module paths of the decoder's dropouts
+        (``jolineedle_tpu/models/gpt.py:243``, then per block ``:94`` and
+        ``:123``), in the order the forward calls them."""
+        sites = [("drop",)]
+        for i in range(self.n_layer):
+            sites += [(f"h_{i}", "attn", "Dropout_0"), (f"h_{i}", "Dropout_0")]
+        return sites
+
+    def _keyed_dropout(self, key):
+        """flax ``nn.Dropout`` under the host dropout key ``key`` given to
+        ``apply``: the k-th call of the forward is the k-th of
+        :meth:`dropout_sites`, whose mask is ``bernoulli(flax_rng(key,
+        site), 1 - p)``; every site's mask is drawn at the first call, in
+        one pass. Kept elements are divided by 1 - p in the input's dtype,
+        as flax divides by the Python float."""
+        if mesh.active_size() > 1:
+            raise ValueError("a JAX key draws for one process; data_parallel draws with a "
+                             "generator")
+        keep, sites, state = 1.0 - self.dropout, self.dropout_sites(), {"calls": 0}
+
+        def drop(x):
+            if "masks" not in state:
+                site_keys = jr.to_device([jr.flax_rng(key, site) for site in sites], x.device)
+                graphs, shape = TRAIN_GRAPHS.get(), tuple(x.shape)
+                masks = lambda k: jr.bernoulli(k, keep, shape)
+                state["masks"] = (masks(site_keys) if graphs is None else
+                                  graphs.key_draws(masks, site_keys, ("dropout", keep, shape)))
+            i, masks = state["calls"], state["masks"]
+            if i >= len(sites) or masks.shape[1:] != x.shape:
+                raise ValueError(f"dropout call {i} of shape {tuple(x.shape)}: the sites are "
+                                 f"{len(sites)} of shape {tuple(masks.shape[1:])}")
+            state["calls"] = i + 1
+            rate = torch.full((), keep, dtype=x.dtype, device=x.device)
+            return torch.where(masks[i], x / rate, torch.zeros_like(x))
+
+        return drop
+
+    def _dropout(self, train: bool, generator):
         """flax ``nn.Dropout``: keep with probability 1 - p and rescale by
-        1 / (1 - p); None where it is the identity."""
+        1 / (1 - p); None where it is the identity. ``generator``: a
+        ``torch.Generator``, or a host JAX key (:meth:`_keyed_dropout`)."""
         if not train or self.dropout == 0.0:
             return None
         if generator is None:
-            raise ValueError("train=True with dropout > 0 needs a torch.Generator")
+            raise ValueError("train=True with dropout > 0 needs a torch.Generator or a key")
+        if not isinstance(generator, torch.Generator):
+            return self._keyed_dropout(generator)
         keep = 1.0 - self.dropout
 
         def drop(x):
@@ -308,10 +398,11 @@ class GPT(nn.Module):
         return drop
 
     def forward(self, patches, actions, classes, positions=None, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator=None):
         """Returns (action_logits [B, T, n_actions], final embeddings).
 
-        ``train`` turns on dropout (drawn from ``generator``) and
+        ``train`` turns on dropout (drawn from ``generator``, a
+        ``torch.Generator`` or a host JAX key) and
         batch-statistics BatchNorm in the embedder (``gpt.py:300-326``)."""
         B, T = actions.shape
         if T > self.block_size:
@@ -326,7 +417,7 @@ class GPT(nn.Module):
         for block in self.h:
             x = block(x, drop=drop)
         x = _layer_norm(self.ln_f, x)
-        logits = self.action_head(x)
+        logits = self._f32_dense(self.action_head.dense, x, train)
         return logits[:, self.token_offset :], x
 
     # --- incremental decode ---------------------------------------------------

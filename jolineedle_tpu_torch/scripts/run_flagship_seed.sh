@@ -8,8 +8,9 @@
 # curves, the cross-check and the final validation against the pairing's
 # quality bands in bands.json) go to the output directory.
 #
-# Usage: SEED=1 [DETECTOR=yolox-s] [INIT_FROM=<run dir> [STREAM_SEED=K]] \
-#          sh jolineedle_tpu_torch/scripts/run_flagship_seed.sh [out_dir] [work_dir]
+# Usage: SEED=1 [DETECTOR=yolox-s] [INIT_FROM=<run dir> [STREAM_SEED=K | JAX_KEYS=N]
+#          [TPU_PRECISION=1]] sh jolineedle_tpu_torch/scripts/run_flagship_seed.sh \
+#          [out_dir] [work_dir]
 #
 #   DETECTOR  yolox-s (the default: a yolox-s detector and a separate
 #             yolox-nano embedder) or yolox-nano (the recipe's own default:
@@ -24,6 +25,13 @@
 #   STREAM_SEED with INIT_FROM only: the seed of the train step's device
 #             draws (dropout, photometric augmentation; stream_seed.py),
 #             SEED still seeding the host batches, tests and evals
+#   JAX_KEYS  with INIT_FROM only, instead of STREAM_SEED: the key route
+#             (stream_seed.py --jax-keys N), the JAX package's own draws
+#             from the step keys of its loop at --steps-per-dispatch N
+#             from PRNGKey(SEED)
+#   TPU_PRECISION=1 with INIT_FROM only: the train step's float32 Dense
+#             products at a TPU's default precision
+#             (stream_seed.py --tpu-default-precision)
 #   out_dir   default chiprun_out/sup_s$SEED
 #   work_dir  default build/runs/sup_s$SEED (the run is
 #             <work_dir>/r3_sup_$DETECTOR)
@@ -44,13 +52,14 @@ nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.t
 if [ ! -f "$DATASET_DIR/train.txt" ]; then
   python -m jolineedle_tpu_torch.scripts.make_toyds_big "$DATASET_DIR"
 fi
-if [ -n "$STREAM_SEED" ] && [ -z "$INIT_FROM" ]; then
-  echo "STREAM_SEED is taken only with INIT_FROM" >&2
+if [ -n "$STREAM_SEED$JAX_KEYS$TPU_PRECISION" ] && [ -z "$INIT_FROM" ]; then
+  echo "STREAM_SEED, JAX_KEYS and TPU_PRECISION are taken only with INIT_FROM" >&2
   exit 2
 fi
 if [ -n "$INIT_FROM" ]; then
   python -m jolineedle_tpu_torch.scripts.sup_probe "$OUT" "$WORK" --detector "$DETECTOR" \
     --seed "$SEED" --tests 0 ${STREAM_SEED:+--stream-seed "$STREAM_SEED"} \
+    ${JAX_KEYS:+--jax-keys "$JAX_KEYS"} ${TPU_PRECISION:+--tpu-default-precision} \
     -- --init-from "$INIT_FROM"
 else
   python -m jolineedle_tpu_torch.scripts.time_recipe --log "$OUT/log.txt" \

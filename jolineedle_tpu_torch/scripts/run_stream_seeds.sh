@@ -3,6 +3,9 @@
 # one seed's host batches, side by side on one card, differing only in the
 # train step's device draws: run_flagship_seed.sh once for each K in
 # STREAM_SEEDS (INIT_FROM, SEED and STREAM_SEED=K), all started together,
+# where a K of the form jN or jNt is the key route instead (JAX_KEYS=N: the
+# JAX loop's step keys of --steps-per-dispatch N from PRNGKey(SEED); t adds
+# TPU_PRECISION=1),
 # each into its own output and work directory. The toy set is written
 # first, once. Then the trained states of the runs with the highest and
 # the lowest full-test single-start mAP (ties: the first in STREAM_SEEDS)
@@ -14,6 +17,8 @@
 # failed; each run's output is in <out_root>/stream_s$SEED_k<K>/run.txt.
 #
 # Usage: INIT_FROM=<run dir> SEED=1 STREAM_SEEDS="2 3 4" [DETECTOR=yolox-nano] \
+#        (or STREAM_SEEDS="j1 j4 j1t": the key route at spd 1 and 4, and at
+#        spd 1 with the TPU-precision option) \
 #          sh jolineedle_tpu_torch/scripts/run_stream_seeds.sh [out_root] [work_root]
 #
 #   out_root  default chiprun_out
@@ -38,7 +43,12 @@ pids=""
 for k in $STREAM_SEEDS; do
   out="$OUT_ROOT/stream_s${SEED}_k$k"
   mkdir -p "$out"
-  STREAM_SEED=$k sh jolineedle_tpu_torch/scripts/run_flagship_seed.sh "$out" \
+  case "$k" in
+    j*t) route="JAX_KEYS=$(echo "$k" | tr -d jt) TPU_PRECISION=1" ;;
+    j*) route="JAX_KEYS=${k#j}" ;;
+    *) route="STREAM_SEED=$k" ;;
+  esac
+  env $route sh jolineedle_tpu_torch/scripts/run_flagship_seed.sh "$out" \
     "$WORK_ROOT/stream_s${SEED}_k$k" > "$out/run.txt" 2>&1 &
   pids="$pids $!"
 done

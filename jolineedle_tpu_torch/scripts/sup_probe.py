@@ -15,7 +15,9 @@ detector mAP) into ``out_dir``:
 
 ``--stream-seed K`` runs the CLI through ``stream_seed.py``, which seeds
 the train step's device draws with ``K`` and leaves everything else to
-``--seed``. A run to its end (``--tests 0``) keeps the weights and train
+``--seed``; ``--jax-keys N`` and ``--tpu-default-precision`` run it through
+the same launcher with those options (the key route, the probe
+precision). A run to its end (``--tests 0``) keeps the weights and train
 state that it ends its training with in ``<work_dir>/last`` (``time_recipe
 --keep-last``) before the final validation writes the best weights over
 them.
@@ -75,6 +77,11 @@ def main(argv=None) -> int:
                         help="sampled tests before the stop (0: run to the end)")
     parser.add_argument("--stream-seed", type=int, default=None,
                         help="seed the train step's device draws apart from --seed")
+    parser.add_argument("--jax-keys", type=int, default=None, metavar="N",
+                        help="draw from the JAX loop's step keys of --steps-per-dispatch N")
+    parser.add_argument("--tpu-default-precision", action="store_true",
+                        help="the train step's float32 Dense products at a TPU's default "
+                             "precision")
     argv = list(sys.argv[1:] if argv is None else argv)
     cut = argv.index("--") if "--" in argv else len(argv)
     args, extra = parser.parse_args(argv[:cut]), argv[cut + 1:]
@@ -84,9 +91,11 @@ def main(argv=None) -> int:
     values = {"SEED": str(args.seed), "DATASET_DIR": str(dataset),
               "WORK_DIR": str(args.work_dir), "MAX_ITERS": "20000", "SPD": "1",
               "DETECTOR": args.detector, "BACKBONE_FLAGS": backbone_flags(args.detector)}
-    entry = ENTRY[1:] if args.stream_seed is None else [
-        "-m", "jolineedle_tpu_torch.scripts.stream_seed", "--stream-seed", str(args.stream_seed),
-        "--"]
+    launch = ([] if args.stream_seed is None else ["--stream-seed", str(args.stream_seed)]) + (
+        [] if args.jax_keys is None else ["--jax-keys", str(args.jax_keys)]) + (
+        ["--tpu-default-precision"] if args.tpu_default_precision else [])
+    entry = ["-m", "jolineedle_tpu_torch.scripts.stream_seed", *launch, "--"] if launch else (
+        ENTRY[1:])
     command = [sys.executable, *entry, *recipe_argv(values), *extra]
     args.out_dir.mkdir(parents=True, exist_ok=True)
     stop = (["--stop-after-tests", str(args.tests)] if args.tests else

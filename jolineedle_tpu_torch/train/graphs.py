@@ -54,6 +54,10 @@ What the graphs keep as they were:
 - what the rest of the step launches: the augmentation and the detection
   batch (drawn from the trainer's generator), the decoder (the flash
   kernel, with its launch count), the losses and the optimizer stay eager.
+  On the key route (``Trainer.key_stream``) the draws themselves, the
+  thousands of small integer ops that hash JAX's keys, are captured per
+  shape (:meth:`TrainGraphs.key_draws`) and replayed on a copy of each
+  step's key: the same numbers in a few launches.
 
 In train mode the shared backbone's running statistics are updated twice
 a step, by the embedder's graph and then by the detector's, in the eager
@@ -217,6 +221,20 @@ class RolloutGraph:
         return self.captured.replay()
 
 
+class KeyedGraph:
+    """``draw(key)`` (the key route's random numbers for fixed shapes)
+    captured on a copy of ``key``. A call copies its key into that copy and
+    replays the graph."""
+
+    def __init__(self, draw, key: torch.Tensor, stream: torch.cuda.Stream):
+        self.key = key.clone()
+        self.captured = CapturedCall(lambda: draw(self.key), stream)
+
+    def __call__(self, key: torch.Tensor):
+        self.key.copy_(key)
+        return self.captured.replay()
+
+
 class TrainGraphs:
     """The graphed parts of one model's train steps, each captured lazily
     at each new input shape (a steady run makes one of each it uses)."""
@@ -257,7 +275,7 @@ class TrainGraphs:
             return out
         if graph is None:
             graph = self.graphed[key] = capture(stream)
-            self.captures[key[0]] += 1
+            self.captures[key[0]] = self.captures.get(key[0], 0) + 1
         return graph(arg)
 
     def _stream_of(self, device: torch.device) -> torch.cuda.Stream:
@@ -289,6 +307,12 @@ class TrainGraphs:
         head = dict(zip(_DetectorHead.KEYS, outs))
         head["grids"], head["strides"] = make_grids_and_strides(x.shape[2], x.device)
         return head
+
+    def key_draws(self, draw, key: torch.Tensor, shapes: tuple):
+        """``draw(key)``, the key route's random numbers at ``shapes``: eager
+        at the first call of ``shapes``, then a :class:`KeyedGraph`."""
+        return self._eager_then_graph(("key_draws",) + tuple(shapes), key.device, draw,
+                                      lambda stream: KeyedGraph(draw, key, stream), key)
 
     def rollout(self, env, generator: torch.Generator):
         """``rollout(model, env, sample=True, generator, collect=("actions",))``:

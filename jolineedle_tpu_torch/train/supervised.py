@@ -34,7 +34,10 @@ The trainer's generator draws, every step and in this order, the decision
 patches' augmentation, the dropout masks and the detector patches'
 augmentation; the JAX step splits one key three ways instead, so the draws
 differ (the losses on the same augmented patches do not, see
-:func:`decision_loss` and :func:`detection_loss`).
+:func:`decision_loss` and :func:`detection_loss`). On the key route
+(``Trainer.key_stream``) the step splits the JAX loop's step key three
+ways as the JAX step does (``supervised.py:110``), and draws JAX's own
+numbers from them.
 
 The eval's trajectory panels (the model's and the oracle's trajectories of
 up to 6 images picked by ``visual_rng``, and with ``--failure-select-rate``
@@ -127,7 +130,7 @@ def decision_loss(model, patches, batch, class_weight, generator=None):
     """The weighted action CE of the teacher-forced forward in train mode on
     already augmented decision ``patches [B, T, P, P, C]`` (float in [0,
     1]) and the batch's tensors (``supervised.py:137-158``): dropout from
-    ``generator``; batch-statistics BatchNorm in the embedder, which updates
+    ``generator`` (or a JAX key); batch-statistics BatchNorm in the embedder, which updates
     its running statistics in place. Returns (loss, metrics)."""
     logits, _ = model(patches, batch["current_actions"].long(), batch["class_id"].long(),
                       batch["positions"].long(), train=True, generator=generator)
@@ -196,11 +199,11 @@ class SupervisedTrainer(Trainer):
                 canvases = aug_canvases(self.pool.images, dev["image_idx"], dev.get("aug_rot"),
                                         dev.get("aug_shift"), dev.get("base_hw"))
             raw = self._pool_patches(dev, dev["positions"], canvases)
+        k_aug1, k_aug2, k_drop = self.step_draws(3)
         with data_parallel(self.world, self.optimizer.trained_params()), \
                 train_graphs.active(self.step_graphs()):
-            patches = detection_augment(self.generator, raw)
-            loss, metrics = decision_loss(self.model, patches, dev, self.class_weight,
-                                          self.generator)
+            patches = detection_augment(k_aug1, raw)
+            loss, metrics = decision_loss(self.model, patches, dev, self.class_weight, k_drop)
             loss.backward()
             loss = loss.detach()
             self._mark("decision")
@@ -211,7 +214,7 @@ class SupervisedTrainer(Trainer):
                     # The streamed batch's padding patches are zeros; so are these.
                     raw = self._pool_patches(dev, dev["yolox_positions"], canvases)
                     raw = raw * dev["yolox_valid"][:, :, None, None, None].to(raw.dtype)
-                det = detection_augment(self.generator, raw)
+                det = detection_augment(k_aug2, raw)
                 ylo = detection_loss(self.model, det, dev)
                 ylo["total_loss"].backward()
                 loss = loss + ylo["total_loss"].detach()

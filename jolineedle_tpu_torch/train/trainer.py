@@ -43,6 +43,7 @@ from ..data.device_pool import DeviceImagePool
 from ..env.actions import get_actions_info
 from ..ops.simota import yolox_losses
 from ..parallel import mesh
+from ..utils import jax_random as jr
 from ..utils.plotting import MISSING, matplotlib_available, plot_model_prediction
 from . import graphs as train_graphs
 from .batching import Prefetcher
@@ -124,6 +125,11 @@ class Trainer:
         #: The train step's random draws (a trainer's train_step says which),
         #: on the trainer's device; saved with the train state.
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        #: The key route (``utils/jax_random.KeyStream``, set by
+        #: ``scripts/stream_seed.py --jax-keys``): the supervised step draws
+        #: from the JAX loop's step keys instead of ``generator``; saved with
+        #: the train state. None: the generator.
+        self.key_stream = None
         #: Set to a list to record (phase, CUDA event) marks in train_step.
         self.phase_events = None
         #: The train steps' CUDA graphs, made at the first step that can use them.
@@ -148,13 +154,43 @@ class Trainer:
                  "generator": self.generator.get_state()}
         if self.jax_origin is not None:
             state["jax_origin"] = self.jax_origin
+        if self.key_stream is not None:
+            state["key_stream"] = self.key_stream.state_dict()
         return state
 
+    #: The bytes of a CUDA generator's state (its seed and offset); a CPU
+    #: generator's is its Mersenne twister, 5,056 bytes.
+    CUDA_GENERATOR_STATE_BYTES = 16
+
     def load_train_state(self, state: dict) -> None:
+        """Restores :meth:`train_state`. A generator saved on another kind
+        of device (a card run resumed on the CPU, or back) cannot be set:
+        the generator restarts from ``--seed``, as the JAX package's step
+        key restarts from ``PRNGKey(seed)`` on a resume, and one line says
+        so. The key route's (seed, steps per dispatch) and the step resume
+        exactly on any device."""
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
-        self.generator.set_state(state["generator"])
+        saved = state["generator"]
+        kind = "cuda" if saved.numel() == self.CUDA_GENERATOR_STATE_BYTES else "cpu"
+        if kind == self.generator.device.type:
+            self.generator.set_state(saved)
+        else:
+            self.generator.manual_seed(self.config.seed)
+            print(f"the train state's generator ran on {kind}, this trainer on "
+                  f"{self.generator.device.type}: its draws restart from --seed "
+                  f"{self.config.seed}", flush=True)
+        if "key_stream" in state:
+            self.key_stream = jr.KeyStream(**state["key_stream"])
         self.jax_origin = state.get("jax_origin")
+
+    def step_draws(self, n: int) -> tuple:
+        """The sources of a train step's ``n`` draws: the generator each
+        time, or on the key route the ``n`` host keys of ``split`` of the
+        step's key (the JAX step's ``split(rng, n)``)."""
+        if self.key_stream is None:
+            return (self.generator,) * n
+        return tuple(jr.split(self.key_stream.step_key(self.step), n))
 
     def state_digest(self) -> str:
         """The digest of the model's and the train state's every tensor and
